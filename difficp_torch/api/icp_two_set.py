@@ -5,9 +5,9 @@ Point set xA is registered onto xB, whose points are the fixed centroids of a
 GMM; the GMM sigma (and optionally an outlier weight) are optimized by EM
 while the registration is optimized per alternation.
 
-Ported: the diffeomorphic branch with ``support_LDDMM={"scheme": "dense"}``.
-Affine types, grid/decim support and ``lambda_LDDMM="auto"`` raise
-``NotImplementedError`` until their modules are ported.
+Ported: the diffeomorphic branch with dense, grid (the default) or custom
+``support_LDDMM``.  Affine types, decim support and ``lambda_LDDMM="auto"``
+raise ``NotImplementedError`` until their modules are ported.
 
 :return: (PSR object, evol dict with per-iteration a0 / GMM snapshots)
 """
@@ -66,10 +66,6 @@ def icp_two_set(
     optim_options = common.default_optim_options(optim_options)
     tol = optim_options["convergence_tolerance"]
     supp = numerical_options["support_LDDMM"]
-    if supp["scheme"] != "dense":
-        raise NotImplementedError(
-            f"support_LDDMM scheme {supp['scheme']!r} is not ported yet: it "
-            "comes with the grid-support slice; pass {'scheme': 'dense'}")
 
     x_a = np.asarray(x_a, np.float32)
     lam = registration_parameters["lambda_LDDMM"]
@@ -79,6 +75,8 @@ def icp_two_set(
             "ported yet")
     lcfg = common.build_lddmm_config(registration_parameters, numerical_options, lam)
     psr = DiffPSR(x_a, gmm_state, gmm_cfg, lcfg, device=device)
+    if supp["scheme"] != "dense":
+        psr.set_support_scheme(**supp)
     evol = {"a0": [], "GMMi": []}
     psr.printstuff = printstuff
 

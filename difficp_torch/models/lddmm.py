@@ -9,10 +9,12 @@
 - ``shoot`` is a Python time loop; dL/dp0 comes from autograd through it.
 - ``optimize`` minimizes trajloss + dataloss over p0 with the lane-batched
   L-BFGS of ``utils/lbfgs.py``: frames are lanes on the leading axis.
+- With grid or custom support the data are advected as external points
+  ``x0`` through the fused ext RHS; the dataloss then reads the warped data.
+- ``v2p`` estimates momenta from a target field (pinv, ridge, CG ridge).
 
-Shapes: q0, p0 (..., M, D), masks (..., M).  ``optimize`` takes frames on a
-leading K axis.  External advected points (``x0``) come with the grid-support
-slice and raise here.
+Shapes: q0, p0 (..., M, D), x0 (..., N, D), masks (..., M) / (..., N).
+``optimize`` takes frames on a leading K axis.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from difficp_torch.ops import backend as red
+from difficp_torch.ops.solvers import kpinv_solve, kridge_solve, kridge_solve_cg
 from difficp_torch.utils.integrators import integrate
 from difficp_torch.utils.lbfgs import lbfgs_optimize, seed_alpha_for
 
@@ -66,6 +69,11 @@ def make_config(
     )
 
 
+def v(cfg: LDDMMConfig, x, q, p, qmask=None):
+    """RKHS vector field at points x (LDDMM.py:100-116)."""
+    return red.v_field(x, q, p, cfg.sigma, cfg.eta, qmask)
+
+
 def hamiltonian(cfg: LDDMMConfig, q, p, qmask=None):
     """H(q, p) (LDDMM.py:142-159)."""
     return red.hamiltonian(q, p, cfg.sigma, cfg.eta, qmask)
@@ -75,33 +83,35 @@ class ShootState(NamedTuple):
     q: torch.Tensor
     p: torch.Tensor
     cost: torch.Tensor               # accumulated divergence cost, per frame
-    x: Optional[torch.Tensor] = None  # advected external points (not ported)
+    x: Optional[torch.Tensor] = None  # advected external points, or None
 
 
-def _ode(cfg: LDDMMConfig, qmask):
+def _ode(cfg: LDDMMConfig, qmask, xmask):
+    """Hamiltonian ODE right-hand side (LDDMM.py:176-227), fused."""
     def fn(s: ShootState) -> ShootState:
-        vq, mgq, dcost = red.lddmm_rhs_self(
-            s.q, s.p, cfg.sigma, cfg.eta, cfg.withlogdet, qmask)
-        return ShootState(q=vq, p=mgq, cost=dcost, x=None)
+        if s.x is None:
+            vq, mgq, dcost = red.lddmm_rhs_self(
+                s.q, s.p, cfg.sigma, cfg.eta, cfg.withlogdet, qmask)
+            return ShootState(q=vq, p=mgq, cost=dcost, x=None)
+        vq, mgq, dcost, vx = red.lddmm_rhs_ext(
+            s.q, s.p, s.x, cfg.sigma, cfg.eta, cfg.withlogdet, qmask, xmask)
+        return ShootState(q=vq, p=mgq, cost=dcost, x=vx)
 
     return fn
 
 
 def shoot(cfg: LDDMMConfig, q0, p0, x0=None, qmask=None, xmask=None,
           save_traj: bool = False):
-    """Simulate the geodesic ODE from (q0, p0) (LDDMM.py:286-299).
+    """Simulate the geodesic ODE from (q0, p0), optionally advecting an
+    external point set x0 (LDDMM.py:286-299).
 
     :return: (final ShootState, trajectory ShootState with nt+1 leading dim
         or None)
     """
-    if x0 is not None:
-        raise NotImplementedError(
-            "advecting external points (grid or decim support) is not ported "
-            "yet: it comes with the grid-support slice")
     state0 = ShootState(
         q=q0, p=p0, cost=torch.zeros(q0.shape[:-2], dtype=q0.dtype,
-                                     device=q0.device), x=None)
-    return integrate(_ode(cfg, qmask), state0, nt=cfg.nt, scheme=cfg.scheme,
+                                     device=q0.device), x=x0)
+    return integrate(_ode(cfg, qmask, xmask), state0, nt=cfg.nt, scheme=cfg.scheme,
                      save_traj=save_traj)
 
 
@@ -126,20 +136,23 @@ class OptimizeResult(NamedTuple):
     stalled: torch.Tensor  # lane converged at f32 resolution this call
 
 
-def _make_lossfn(cfg, dataloss, q0, qmask):
+def _make_lossfn_aux(cfg, dataloss, q0, x0, qmask, xmask):
+    """p -> (trajloss + dataloss(arrival points), (final, trajl, datal)); the
+    arrival points are the warped data x1 when x0 is given, else q1."""
     def lossfn(p):
-        final, _ = shoot(cfg, q0, p, None, qmask)
-        return trajloss(cfg, q0, p, final.cost, qmask) + dataloss(final.q)
+        final, _ = shoot(cfg, q0, p, x0, qmask, xmask)
+        trajl = trajloss(cfg, q0, p, final.cost, qmask)
+        datal = dataloss(final.q if x0 is None else final.x)
+        return trajl + datal, (final, trajl, datal)
 
     return lossfn
 
 
 def seed_alpha(cfg, dataloss, q0, p0, x0=None, qmask=None, xmask=None):
     """Per-frame zoom line-search seed ~ min(1, 1/||g0||) for ``optimize``."""
-    if x0 is not None:
-        raise NotImplementedError(
-            "external points come with the grid-support slice")
-    return seed_alpha_for(_make_lossfn(cfg, dataloss, q0.detach(), qmask), p0)
+    lossfn = _make_lossfn_aux(cfg, dataloss, q0.detach(),
+                              None if x0 is None else x0.detach(), qmask, xmask)
+    return seed_alpha_for(lambda p: lossfn(p)[0], p0)
 
 
 def optimize(
@@ -163,21 +176,15 @@ def optimize(
 ) -> OptimizeResult:
     """min_{p0} trajloss(p0) + dataloss(arrival points) (LDDMM.py:338-398),
     for K frames in lockstep: q0, p0 (K, M, D), ``dataloss(pts)`` -> (K,).
+    ``dataloss`` reads the warped data points x1 when ``x0`` is given, else
+    the arrival support q1.
 
     ``warm_vg``: ``(grad, final, trajl, datal)`` of a previous result at
     ``p0`` on the IDENTICAL objective; skips the entry value+grad.
     """
-    if x0 is not None:
-        raise NotImplementedError(
-            "external points (grid or decim support) come with the "
-            "grid-support slice")
-    q0 = q0.detach()
-
-    def lossfn_aux(p):
-        final, _ = shoot(cfg, q0, p, None, qmask)
-        trajl = trajloss(cfg, q0, p, final.cost, qmask)
-        datal = dataloss(final.q)
-        return trajl + datal, (final, trajl, datal)
+    lossfn_aux = _make_lossfn_aux(cfg, dataloss, q0.detach(),
+                                  None if x0 is None else x0.detach(), qmask,
+                                  xmask)
 
     if warm_vg is not None:
         grad0, final0, trajl0, datal0 = warm_vg
@@ -198,6 +205,29 @@ def optimize(
         alpha_qn=res.alpha_qn, memory=res.memory, grad=res.grad,
         n_evals=res.n_evals, stalled=res.stalled,
     )
+
+
+def v2p(cfg: LDDMMConfig, q, v_target, rcond=1e-3, alpha=1e-4,
+        version: str = "pinv", qmask=None):
+    """Estimate momenta p with v(q, q, p) ~= v_target (ill-posed; pinv or
+    ridge regularized, LDDMM.py:235-253).  Above the dense pair limit the
+    O(M^3) solves are out of reach: "pinv" and "ridge" then switch to the
+    matrix-free CG ridge solve, as in the JAX package."""
+    if cfg.eta != 0.0:
+        raise NotImplementedError(
+            "v2p with gradcomponent=True needs grad_kred, which comes with the "
+            "eta != 0 slice")
+    m = q.shape[-2]
+    if version in ("pinv", "ridge", "ridge_keops", "ridge_pytorch") and (
+            m * m > red.DENSE_PAIR_LIMIT):
+        version = "ridge_cg"
+    if version == "pinv":
+        return kpinv_solve(q, v_target, cfg.sigma, rcond=rcond, mask=qmask)
+    if version in ("ridge", "ridge_keops", "ridge_pytorch"):
+        return kridge_solve(q, v_target, cfg.sigma, alpha=alpha, mask=qmask)
+    if version == "ridge_cg":
+        return kridge_solve_cg(q, v_target, cfg.sigma, alpha=alpha, mask=qmask)
+    raise ValueError(f"unknown v2p version: {version}")
 
 
 def quad_dataloss(y, cmul: float = 1.0):

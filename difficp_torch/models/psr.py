@@ -13,9 +13,11 @@ The alternating free-energy minimization of the reference (PSR.py:42-653):
   leading K axis of one tensor (``utils/lbfgs``).
 - State lives in tensors on ``device``; the class is a thin host-side wrapper.
 
-Support is dense (support = all data points).  Grid and decim support, the
-fused ``run()`` loop, ``AffinePSR`` and ``Registration()`` come with later
-slices and raise ``NotImplementedError``.
+Support is dense (support = all data points, the default), a grid or custom
+points; with grid or custom support the data are advected as external points
+and each ``Reg_opt`` ends with a coverage pass over the saved trajectory.
+``run()`` is the fused loop's semantics as a Python loop.  Decim support and
+``AffinePSR`` come with later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,13 +25,17 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from difficp_torch.models import gmm as gmm_mod
 from difficp_torch.models import lddmm as lddmm_mod
+from difficp_torch.models.registration import LDDMMRegistration
+from difficp_torch.ops import backend as red
 from difficp_torch.utils.integrators import tree_map
 from difficp_torch.utils.io import PaddedFrames, pad_structures
 from difficp_torch.utils.lbfgs import zero_memory
+from difficp_torch.utils.point_sets import grid_support
 from difficp_torch.utils.spec import as_tensor, resolve_device
 
 
@@ -65,21 +71,36 @@ def _frame_quad_dataloss(y, sig2, xm, w):
     return dataloss
 
 
-def _reg_opt_lddmm(lcfg, q0, a0, y, sig2, qmask, xmask, ptw, nmax, tol,
-                   inner, ls_steps, alpha0, mem0, vg0, alpha_qn0, stall0):
-    """All-frames LDDMM registration step with dense support (lockstep
-    L-BFGS over the momenta; PSR.py:521-569).  Returns new a0, warped points,
-    per-frame (regloss, datal, nsteps, change), uncovered counts (zeros: the
-    coverage check belongs to grid/decim support), alpha, memory, the
-    threaded (grad, final, trajl, datal), n_evals, alpha_qn and stall."""
+def _reg_opt_lddmm(lcfg, q0, a0, x0, y, sig2, qmask, xmask, ptw, nmax, tol,
+                   use_ext, inner, ls_steps, alpha0, mem0, vg0, alpha_qn0, stall0,
+                   r_cover_warn=2.0):
+    """All-frames LDDMM registration step (lockstep L-BFGS over the momenta;
+    PSR.py:521-569).  With external points (``use_ext``) one more shoot saves
+    the trajectory, and every data point of every frame at every time step
+    is checked for coverage by the support in one batched call
+    (PSR.py:556-566).  Returns new a0, warped points, per-frame (regloss,
+    datal, nsteps, change), per-frame uncovered counts (K, nt + 1), alpha,
+    memory, the threaded (grad, final, trajl, datal), n_evals, alpha_qn and
+    stall."""
     dataloss = _frame_quad_dataloss(y, sig2, xmask, ptw)
     res = lddmm_mod.optimize(
-        lcfg, dataloss, q0, a0, None, qmask, None, nmax=nmax, tol=tol,
+        lcfg, dataloss, q0, a0, x0 if use_ext else None, qmask,
+        xmask if use_ext else None, nmax=nmax, tol=tol,
         inner=inner, max_linesearch_steps=ls_steps, alpha0=alpha0,
         alpha_qn0=alpha_qn0, memory0=mem0, warm_vg=vg0, stall0=stall0)
-    uncovered = torch.zeros((q0.shape[0], lcfg.nt + 1), dtype=torch.int32,
-                            device=q0.device)
-    return (res.p0, res.final.q, res.trajl, res.datal, res.n_steps, res.change,
+    if use_ext:
+        with torch.no_grad():
+            final, traj = lddmm_mod.shoot(lcfg, q0, res.p0, x0, qmask, xmask,
+                                          save_traj=True)
+            uncov = red.check_coverage(traj.x, traj.q, lcfg.sigma, r_cover_warn,
+                                       mask_x=xmask, mask_y=qmask)
+        x1 = final.x
+        uncovered = uncov.sum(-1).to(torch.int32).T.contiguous()
+    else:
+        x1 = res.final.q
+        uncovered = torch.zeros((q0.shape[0], lcfg.nt + 1), dtype=torch.int32,
+                                device=q0.device)
+    return (res.p0, x1, res.trajl, res.datal, res.n_steps, res.change,
             uncovered, res.alpha, res.memory,
             (res.grad, res.final, res.trajl, res.datal), res.n_evals,
             res.alpha_qn, res.stalled)
@@ -148,9 +169,16 @@ class MultiPSR:
             (self.gmm[s].sigma ** 2).expand(self.K, self.structs[s].nmax)
             for s in range(self.S)], 1)
 
+    def get_data_points(self, k=0, s=0):
+        lo, hi = self.slices[s]
+        return self.x0[k, lo:hi].detach().cpu().numpy()[: int(self.structs[s].n[k])]
+
     def get_warped_data_points(self, k=0, s=0):
         lo, hi = self.slices[s]
         return self.x1[k, lo:hi].detach().cpu().numpy()[: int(self.structs[s].n[k])]
+
+    def get_template(self, s=0):
+        return self.gmm[s].mu.detach().cpu().numpy()
 
     # ----- GMM updates ----------------------------------------------------
 
@@ -201,6 +229,31 @@ class MultiPSR:
                 msg = None
             self.update_FE(message=msg)
 
+    def reinitialize_GMM(self, s=None, do_mu=True, do_sigma=True, seed=0):
+        """Ad hoc re-initialization adapted to upcoming EM (PSR.py:143-167),
+        drawn with numpy from ``seed`` as in the JAX package."""
+        rng = np.random.default_rng(seed)
+        slist = range(self.S) if s is None else [s]
+        changed = False
+        for si in slist:
+            pf = self.structs[si]
+            pts = np.concatenate([pf.unpad(k) for k in range(self.K)], axis=0)
+            g = self.gmm[si]
+            if do_mu and self.gmm_cfg[si].optimize_mu:
+                mu = pts.mean(0) + 0.05 * pts.std() * rng.standard_normal(
+                    (g.mu.shape[0], self.D)).astype(np.float32)
+                g = g._replace(mu=as_tensor(mu, self.device))
+                changed = True
+            if do_sigma and self.gmm_cfg[si].optimize_sigma:
+                g = g._replace(sigma=as_tensor(np.float32(0.25 * pts.std()), self.device))
+                changed = True
+            self.gmm[si] = g
+        if changed:
+            # a re-initialization starts a fresh descent: reset the monotone-FE
+            # tracker so the (legitimate) jump is not flagged
+            self.FE = None
+            self.update_GMM_targets()
+
     # ----- free energy ----------------------------------------------------
 
     def _update_quadlosses(self):
@@ -229,8 +282,7 @@ class MultiPSR:
 
 
 class DiffPSR(MultiPSR):
-    """MultiPSR with diffeomorphic (LDDMM) registrations (PSR.py:354-569),
-    dense support."""
+    """MultiPSR with diffeomorphic (LDDMM) registrations (PSR.py:354-569)."""
 
     def __init__(self, x, gmm_states, gmm_cfgs,
                  lddmm_cfg: lddmm_mod.LDDMMConfig, device=None):
@@ -256,16 +308,53 @@ class DiffPSR(MultiPSR):
         self._reg_stall = None
         if self.lcfg.eta != 0.0:
             raise NotImplementedError(
-                "gradcomponent=True needs v2p (models/calibration, "
-                "ops/solvers), which comes with the eta != 0 slice")
+                "gradcomponent=True needs v2p with the gradcomponent field, "
+                "which comes with the eta != 0 slice")
         self.a0 = torch.zeros_like(self.q0)
+
+    def update_a0(self, q0_prev, qmask_prev, a0_prev=None, rcond=1e-1):
+        """Project the previous vector field onto the new support
+        (PSR.py:415-425)."""
+        if a0_prev is None:
+            a0_prev = self.a0
+        with torch.no_grad():
+            v_new = lddmm_mod.v(self.lcfg, self.q0, q0_prev, a0_prev, qmask_prev)
+            self.a0 = lddmm_mod.v2p(self.lcfg, self.q0, v_new, rcond=rcond,
+                                    qmask=self.qmask)
+        self._reg_vg = None  # new support / momenta: stale entry (value, grad)
+        self._reg_stall = None
 
     def set_support_scheme(self, scheme="decim", rho=1.0, xticks=None,
                            yticks=None, q0=None):
-        """Grid, decim and custom support (PSR.py:430-493)."""
-        raise NotImplementedError(
-            f"support scheme {scheme!r} is not ported yet: it comes with the "
-            "grid-support slice (external-point kernels, kmin2)")
+        """Choose LDDMM support points: a rectangular grid covering the data
+        with step rho * sigma, or custom points (PSR.py:430-493).  The same
+        support serves every frame."""
+        if scheme == "decim":
+            raise NotImplementedError(
+                "decim support needs decimate and its native library, which "
+                "come with the decim-support slice; use 'grid' or 'custom'")
+        if scheme == "grid":
+            ticks = None
+            if xticks is not None and yticks is not None:
+                ticks = [np.asarray(xticks), np.asarray(yticks)]
+            pts = grid_support(self.x0.detach().cpu().numpy().reshape(-1, self.D),
+                               rho * self.lcfg.sigma, ticks=ticks)
+        elif scheme == "custom":
+            if q0 is None:
+                raise ValueError("custom support needs q0")
+            pts = np.asarray(q0.detach().cpu() if isinstance(q0, torch.Tensor) else q0,
+                             np.float32)
+        else:
+            raise ValueError(f"Unknown support scheme: {scheme}")
+        self.rho = rho
+        self.support_scheme = scheme
+        q0_prev, qmask_prev = self.q0, self.qmask
+        self.q0 = as_tensor(pts, self.device).expand(self.K, *pts.shape).contiguous()
+        self.qmask = torch.ones((self.K, pts.shape[0]), device=self.device)
+        self.update_a0(q0_prev, qmask_prev, rcond=1e-1)
+        # the momentum parameter space changed: carried L-BFGS curvature
+        # pairs refer to the old support and are meaningless now
+        self._reg_memory = None
 
     def Reg_opt(self, tol=1e-3, nmax=10, inner=20, ls_steps=25,
                 carry_memory=False, carry_value=False, frame_chunk=None):
@@ -278,6 +367,7 @@ class DiffPSR(MultiPSR):
         objective is unchanged (any EM target update invalidates it).
         ``frame_chunk``: run the K frames in sequential chunks of at most this
         many lanes; all per-frame threaded state is sliced per chunk."""
+        use_ext = self.support_scheme is not None
         sig2 = self._sig2_vector()
         k = self.q0.shape[0]
         alpha0 = self._reg_alpha
@@ -300,10 +390,10 @@ class DiffPSR(MultiPSR):
         for lo in range(0, k, fc):
             sl = slice(lo, min(lo + fc, k))
             parts.append(_reg_opt_lddmm(
-                self.lcfg, self.q0[sl], self.a0[sl], self.y[sl], sig2[sl],
-                self.qmask[sl], self.xmask[sl], self.ptw[sl], nmax, tol, inner,
-                ls_steps, alpha0[sl], _slice(mem0, sl), _slice(vg0, sl),
-                _slice(aqn0, sl), _slice(stall0, sl)))
+                self.lcfg, self.q0[sl], self.a0[sl], self.x0[sl], self.y[sl],
+                sig2[sl], self.qmask[sl], self.xmask[sl], self.ptw[sl], nmax, tol,
+                use_ext, inner, ls_steps, alpha0[sl], _slice(mem0, sl),
+                _slice(vg0, sl), _slice(aqn0, sl), _slice(stall0, sl)))
         out = parts[0] if len(parts) == 1 else tree_map(
             lambda *xs: torch.cat(xs, 0), *parts)
         (a0, x1, trajl, datal, nsteps, change, uncovered, alpha, mem, vg,
@@ -325,17 +415,105 @@ class DiffPSR(MultiPSR):
         self.last_reg_stats = dict(nsteps=nsteps, change=change, datal=datal,
                                    uncovered=uncovered)
         if self.printstuff:
+            unc = uncovered.cpu().numpy()
+            if use_ext and unc.sum() > 0:
+                print(f"WARNING : uncovered points during shooting "
+                      f"(max {unc.max()} at one time step). Choose a smaller rho.")
             total_loss = float(trajl.sum() + datal.sum())
             msg = f"Reg_opt ({self.K} frames in lockstep) : loss={total_loss:.4}"
         else:
             msg = None
         self.update_FE(message=msg)
 
-    def run(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the fused run() loop is not ported yet: call GMM_opt and Reg_opt")
+    def _gmm_pass(self, max_em, em_tol):
+        """EM on every structure from the current warped points: new GMM
+        states, targets y, weights ptw and the Cfe of each structure."""
+        ys, ptws, cfes = [], [], []
+        for s in range(self.S):
+            xs = self.struct_view(self.x1, s)
+            ms = self.structs[s].mask
+            opt = gmm_mod.em_optimization(
+                self.gmm[s], xs.reshape(-1, self.D), ms.reshape(-1),
+                self.gmm_cfg[s], max_iterations=max_em, tol=em_tol)
+            self.gmm[s] = opt.state
+            ys.append(opt.y.reshape(xs.shape))
+            ptws.append(opt.gamt.reshape(ms.shape))
+            cfes.append(opt.cfe)
+        return torch.cat(ys, 1), torch.cat(ptws, 1), torch.stack(cfes)
 
-    def Registration(self, k=0):
-        raise NotImplementedError(
-            "Registration() needs models/registration.py, which comes with the "
-            "grid-support slice")
+    def run(self, n_iters: int, max_em: int = 25, em_tol: float = 1e-3,
+            reg_nmax: int = 10, reg_tol: float = 1e-3, reg_inner: int = 20,
+            reg_ls: int = 25, carry_memory: bool = False):
+        """``n_iters`` full alternations (GMM EM + lockstep registration), the
+        semantics of the JAX package's fused loop (``_run_loop_lddmm``) as a
+        Python loop: no coverage pass, no threaded entry value or stall
+        flags; the line-search step, quasi-Newton scale and (with
+        ``carry_memory``) curvature memory carry from one iteration to the
+        next.  FE = sum Cfe + sum trajl + quad per iteration; host
+        bookkeeping is refreshed at the end (``update_GMM_targets``).
+
+        :return: per-iteration free-energy sequence (numpy array).
+        """
+        if n_iters <= 0:
+            return np.zeros((0,), np.float64)
+        use_ext = self.support_scheme is not None
+        k = self.K
+        alpha = self._reg_alpha
+        if alpha is None:
+            alpha = torch.zeros((k,), device=self.device)
+        aqn = self._reg_alpha_qn
+        mem = self._reg_memory if carry_memory else None
+        if carry_memory and mem is None:
+            mem = zero_memory(k, self.a0[0].numel(), device=self.device)
+        fes = []
+        for _ in range(n_iters):
+            y, ptw, cfes = self._gmm_pass(max_em, em_tol)
+            sig2 = self._sig2_vector()
+            res = lddmm_mod.optimize(
+                self.lcfg, _frame_quad_dataloss(y, sig2, self.xmask, ptw),
+                self.q0, self.a0, self.x0 if use_ext else None, self.qmask,
+                self.xmask if use_ext else None, nmax=reg_nmax, tol=reg_tol,
+                inner=reg_inner, max_linesearch_steps=reg_ls, alpha0=alpha,
+                alpha_qn0=aqn, memory0=mem)
+            self.a0 = res.p0
+            self.x1 = res.final.x if use_ext else res.final.q
+            self.regloss = res.trajl
+            alpha, aqn = res.alpha, res.alpha_qn
+            if carry_memory:
+                mem = res.memory
+            quad = ((self.xmask * ptw)[..., None] * (self.x1 - y) ** 2
+                    / (2.0 * sig2[..., None])).sum()
+            fes.append(cfes.sum() + res.trajl.sum() + quad)
+        self._reg_alpha = alpha
+        self._reg_alpha_qn = aqn
+        if carry_memory:
+            self._reg_memory = mem
+        fes_host = torch.stack(fes).double().cpu().numpy()
+        inc = int(np.sum(np.diff(fes_host) > 1e-4 * np.abs(fes_host[:-1]) + 1e-6))
+        if self.FE is not None and fes_host[0] > self.FE + 1e-4 * abs(self.FE):
+            inc += 1
+        if inc and self.printstuff:
+            print("WARNING: measured increase in free energy ! Should not happen.")
+        self.fe_increase_events += inc
+        self.FE = float(fes_host[-1])
+        keep, self.printstuff = self.printstuff, False
+        self.update_GMM_targets()  # refresh y/ptw/Cfe/quadloss consistently
+        self.printstuff = keep
+        if self.printstuff:
+            print(f"run({n_iters}) : FE {fes_host[0]:.6} -> {self.FE:.6}")
+        return fes_host
+
+    def Registration(self, k=0) -> LDDMMRegistration:
+        return LDDMMRegistration(cfg=self.lcfg, q0=self.q0[k], a0=self.a0[k],
+                                 qmask=self.qmask[k])
+
+    def trajectories(self, k=0, support=False):
+        """Shoot trajectories for frame k (viz; PSR.py:310-345)."""
+        use_ext = self.support_scheme is not None
+        with torch.no_grad():
+            _, traj = lddmm_mod.shoot(
+                self.lcfg, self.q0[k], self.a0[k], self.x0[k] if use_ext else None,
+                self.qmask[k], self.xmask[k] if use_ext else None, save_traj=True)
+        if use_ext and not support:
+            return traj.x.cpu().numpy()
+        return traj.q.cpu().numpy()

@@ -4,13 +4,16 @@
 Two routes with one contract:
 
 - ``dense``  -- materialize the (M, N) pair matrices (``ops/reductions.py``);
-                used at or under ``DENSE_PAIR_LIMIT`` pairs per frame, as in
-                the JAX package.
-- ``kernel`` -- the fused self-RHS and Hamiltonian as autograd Functions over
-                the hand-written CUDA kernels (``ops/rhs_self.py``); used above
-                the limit for eta = 0.  On a CPU tensor the Function takes the
-                kernel's plain PyTorch version, which stands in for the JAX
-                package's ``blockwise`` route until that module is ported.
+                used at or under ``DENSE_PAIR_LIMIT`` pairs per frame, with
+                the JAX package's pair counts.
+- ``kernel`` -- autograd Functions and ops over the hand-written CUDA
+                kernels: the fused self RHS and Hamiltonian
+                (``ops/rhs_self.py``), the external-point RHS
+                (``ops/rhs_ext.py``) and the top-2 minimum (``ops/kmin2.py``);
+                used above the limit (eta = 0 for the RHS).  On a CPU tensor
+                they take the kernels' plain PyTorch versions, which stand in
+                for the JAX package's ``blockwise`` route until that module
+                is ported.
 
 ``set_backend("kernel")`` forces the kernel route at any size (the API's
 ``"pallas"`` maps to it).  Routes that are not ported yet raise
@@ -21,7 +24,9 @@ from __future__ import annotations
 
 import os
 
+from difficp_torch.ops import kmin2 as _kmin2
 from difficp_torch.ops import reductions as _dense
+from difficp_torch.ops import rhs_ext as _ext
 from difficp_torch.ops import rhs_self as _kernel
 
 # 4M pairs * ~6 (M,N)-temps * 4B ~= 100MB peak; beyond, stream.
@@ -29,8 +34,8 @@ DENSE_PAIR_LIMIT = int(os.environ.get("DIFFICP_DENSE_PAIR_LIMIT", 4_000_000))
 
 _FORCE = {"mode": None}  # None = auto; "dense" | "kernel"
 
-_NEXT_SLICE = ("not ported yet: it comes with the grid-support slice "
-               "(external-point kernels and kmin2)")
+_ETA_SLICE = ("eta != 0 above the dense pair limit is not ported yet: it "
+              "comes with the eta != 0 slice")
 
 
 def set_backend(mode):
@@ -59,10 +64,19 @@ def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None):
     if _use_dense(m, m):
         return _dense.lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q)
     if eta != 0.0:
-        raise NotImplementedError(
-            "eta != 0 above the dense pair limit is not ported yet: it comes "
-            "with the eta != 0 slice")
+        raise NotImplementedError(_ETA_SLICE)
     return _kernel.lddmm_rhs_self(q, p, sigma, withlogdet, mask_q)
+
+
+def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None):
+    """(vq, -Gq, dcost, vx) of the RHS with external points x, dense or kernel
+    route, on m (m + n_x) pairs per frame (JAX backend.py:122-130)."""
+    m = q.shape[-2]
+    if _use_dense(m, m + x.shape[-2]):
+        return _dense.lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q, mask_x)
+    if eta != 0.0:
+        raise NotImplementedError(_ETA_SLICE)
+    return _ext.lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q, mask_x)
 
 
 def hamiltonian(q, p, sigma, eta, mask_q=None):
@@ -71,22 +85,63 @@ def hamiltonian(q, p, sigma, eta, mask_q=None):
     if _use_dense(m, m):
         return _dense.hamiltonian(q, p, sigma, eta, mask_q)
     if eta != 0.0:
-        raise NotImplementedError(
-            "eta != 0 above the dense pair limit is not ported yet: it comes "
-            "with the eta != 0 slice")
+        raise NotImplementedError(_ETA_SLICE)
     return _kernel.hamiltonian(q, p, sigma, mask_q)
 
 
+def v_field(x, q, p, sigma, eta, mask_q=None):
+    """RKHS vector field at points x; above the limit at eta = 0 the ext
+    forward kernel with logdet off (the JAX package's make_v_field)."""
+    if _use_dense(x.shape[-2], q.shape[-2]):
+        return _dense.v_field(x, q, p, sigma, eta, mask_q)
+    if eta != 0.0:
+        raise NotImplementedError(_ETA_SLICE)
+    return _ext.v_field(x, q, p, sigma, mask_q)
+
+
+def kred(x, y, b, sigma, mask_y=None):
+    """Kernel-sum convolution sum_j K(x_i - y_j) m_j b_j.  Above the limit
+    only the self sum kred(q, q, b) exists, as the self forward kernel's v
+    output, which also zeroes rows with m_i = 0 (its one caller,
+    ``solvers.kridge_solve_cg``, overwrites those rows)."""
+    if _use_dense(x.shape[-2], y.shape[-2]):
+        return _dense.kred(x, y, b, sigma, mask_y)
+    if x is not y:
+        raise NotImplementedError(
+            "kred between two point sets above the dense pair limit is not "
+            "ported yet: it comes with the kernel op layer (pallas_ksum)")
+    m = _kernel._ones_mask(x) if mask_y is None else mask_y.contiguous()
+    v, _, _ = _kernel.rhs_self_fwd(x.contiguous(), b.contiguous(), m, float(sigma),
+                                   False)
+    return v
+
+
 def min_sqdist(x, y, mask_y=None):
-    """min_j |x_i - y_j|^2 (reference kernel.py:324-328)."""
+    """min_j |x_i - y_j|^2 (reference kernel.py:324-328); kmin2 above the
+    limit."""
     if _use_dense(x.shape[-2], y.shape[-2]):
         return _dense.min_sqdist(x, y, mask_y)
-    raise NotImplementedError(f"min_sqdist above the dense pair limit is {_NEXT_SLICE}")
+    if mask_y is not None:
+        mask_y = mask_y.expand(y.shape[:-1]).contiguous()
+    m1, _ = _kmin2.kmin2(x.contiguous(), y.contiguous(), mask_y)
+    return m1
 
 
 def second_min_sqdist(x, mask=None):
-    """Nearest-neighbour (excluding self) squared distance, Kmin(2)."""
+    """Nearest-neighbour (excluding self) squared distance, Kmin(2); kmin2
+    with self-exclusion above the limit (its first minimum)."""
     if _use_dense(x.shape[-2], x.shape[-2]):
         return _dense.second_min_sqdist(x, mask)
-    raise NotImplementedError(
-        f"second_min_sqdist above the dense pair limit is {_NEXT_SLICE}")
+    if mask is not None:
+        mask = mask.expand(x.shape[:-1]).contiguous()
+    m1, _ = _kmin2.kmin2(x.contiguous(), x.contiguous(), mask, exclude_self=True)
+    return m1
+
+
+def check_coverage(x, y, sigma, r_threshold, mask_x=None, mask_y=None):
+    """True for x_i farther than r_threshold * sigma from every y_j
+    (kernel.py:324-328), via the dispatched min reduction."""
+    uncov = min_sqdist(x, y, mask_y) > (r_threshold * sigma) ** 2
+    if mask_x is not None:
+        uncov = uncov & (mask_x > 0)
+    return uncov

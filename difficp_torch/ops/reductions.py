@@ -78,6 +78,47 @@ def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None):
     return vq, -gq, dcost
 
 
+def kred(x, y, b, sigma, mask_y=None):
+    """sum_j K(x_i - y_j) m_j b_j, the kernel-sum convolution (reference
+    kernel.py:138)."""
+    _, _, k = _kmat(x, y, sigma, mask_y)
+    return k @ b
+
+
+def v_field(x, q, p, sigma, eta, mask_q=None):
+    """RKHS vector field at points x (LDDMM.py:100-116):
+    v(x_i) = sum_j [ p_j K(x_i - q_j) - eta (grad K)(x_i - q_j) ]."""
+    diff, _, k = _kmat(x, q, sigma, mask_q)
+    out = k @ p
+    if eta != 0.0:
+        out = out - eta * (k[..., None] * -diff).sum(-2) / sigma**2
+    return out
+
+
+def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None):
+    """Fused ODE right-hand side with an external advected point set x:
+    (vq, -Gq, dcost, vx), the divergence cost evaluated at the data points
+    (LDDMM.py:219-227)."""
+    vq, mgq, _ = lddmm_rhs_self(q, p, sigma, eta, False, mask_q)
+    diff, d2, k = _kmat(x, q, sigma, mask_q)  # (..., N, M)
+    sig2 = sigma**2
+    vx = k @ p
+    if eta != 0.0:
+        vx = vx - eta * (k[..., None] * -diff).sum(-2) / sig2
+    if withlogdet:
+        km = k * mask_x[..., :, None] if mask_x is not None else k
+        # -div v(x_i) = sum_j p_j.(x_i - q_j) K / s^2 (+ the eta Laplacian)
+        dcost = -(km[..., None] * -diff * p[..., None, :, :]).sum((-3, -2, -1)) / sig2
+        if eta != 0.0:
+            dim = q.shape[-1]
+            dcost = dcost + eta * (km * (d2 / sigma**4 - dim / sig2)).sum((-2, -1))
+    else:
+        dcost = torch.zeros(q.shape[:-2], dtype=q.dtype, device=q.device)
+    if mask_x is not None:
+        vx = vx * mask_x[..., None]
+    return vq, mgq, dcost, vx
+
+
 def min_sqdist(x, y, mask_y=None):
     """min_j |x_i - y_j|^2 (masked y excluded)."""
     diff = x[..., :, None, :] - y[..., None, :, :]
@@ -98,3 +139,12 @@ def second_min_sqdist(x, mask=None):
     if mask is not None:
         d2 = torch.where(mask[..., None, :] > 0, d2, torch.inf)
     return d2.min(-1).values
+
+
+def check_coverage(x, y, sigma, r_threshold, mask_x=None, mask_y=None):
+    """True for points x_i farther than r_threshold * sigma from every y_j
+    (kernel.py:324-328)."""
+    uncov = min_sqdist(x, y, mask_y) > (r_threshold * sigma) ** 2
+    if mask_x is not None:
+        uncov = uncov & (mask_x > 0)
+    return uncov

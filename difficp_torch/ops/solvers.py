@@ -1,0 +1,105 @@
+"""RKHS kernel solves (counterpart of ``difficp_tpu/ops/solvers.py``):
+``KpinvSolve`` (kernel.py:227-232) and ``KridgeSolve`` (kernel.py:234-242)
+with ``torch.linalg``, and a matrix-free conjugate-gradient ridge solve whose
+matvec is the dispatched ``backend.kred``.  They run at set-up time only
+(momentum initialization and projection, LDDMM.py:235-253).
+
+Masked convention: padded support rows are replaced by identity rows in the
+kernel matrix and zeroed right-hand sides, so solutions carry exact zeros in
+padded slots.  Shapes: q, v (..., M, D), mask (..., M); leading dimensions
+are frames.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _masked_gram(q, sigma, mask=None, diag_boost=0.0):
+    d2 = ((q[..., :, None, :] - q[..., None, :, :]) ** 2).sum(-1)
+    k = torch.exp(-d2 / (2.0 * sigma**2))
+    eye = torch.eye(q.shape[-2], dtype=q.dtype, device=q.device)
+    if mask is not None:
+        mm = mask[..., :, None] * mask[..., None, :]
+        k = k * mm + (1.0 - mask)[..., :, None] * eye  # identity rows for padding
+    if diag_boost:
+        k = k + diag_boost * eye
+    return k
+
+
+def kpinv_solve(q, v, sigma, rcond=None, mask=None):
+    """Least-squares solve of K(q, q) b = v via the SVD pseudo-inverse with
+    relative cutoff rcond (reference KpinvSolve, kernel.py:227-232)."""
+    k = _masked_gram(q, sigma, mask)
+    if mask is not None:
+        v = v * mask[..., None]
+    u, s, vh = torch.linalg.svd(k)
+    s0 = s[..., :1]
+    if rcond is None:
+        cutoff = torch.finfo(k.dtype).eps * k.shape[-1] * s0
+    else:
+        cutoff = rcond * s0
+    keep = s > cutoff
+    sinv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                       torch.zeros_like(s))
+    sol = vh.transpose(-1, -2) @ (sinv[..., None] * (u.transpose(-1, -2) @ v))
+    if mask is not None:
+        sol = sol * mask[..., None]
+    return sol
+
+
+def kridge_solve(q, v, sigma, alpha=1e-4, mask=None):
+    """Ridge solve (K + alpha I) b = v (reference KridgeSolve,
+    kernel.py:234-242)."""
+    k = _masked_gram(q, sigma, mask, diag_boost=alpha)
+    if mask is not None:
+        v = v * mask[..., None]
+    sol = torch.linalg.solve(k, v)
+    if mask is not None:
+        sol = sol * mask[..., None]
+    return sol
+
+
+def kridge_solve_cg(q, v, sigma, alpha=1e-4, mask=None, tol=1e-6, maxiter=500):
+    """Matrix-free ridge solve (K + alpha I) b = v by conjugate gradients, the
+    large-M path where the Gram matrix cannot exist.  K is PSD and alpha > 0,
+    so the system is SPD.  Each frame stops once its residual norm is at most
+    tol times the norm of its right-hand side (the stopping rule of
+    jax.scipy.sparse.linalg.cg), or after maxiter iterations."""
+    from difficp_torch.ops import backend as _red
+
+    if mask is not None:
+        v = v * mask[..., None]
+
+    def matvec(b):
+        out = _red.kred(q, q, b if mask is None else b * mask[..., None], sigma, mask)
+        if mask is not None:
+            # identity rows for padded slots (same convention as _masked_gram)
+            out = mask[..., None] * out + (1.0 - mask)[..., None] * b
+        return out + alpha * b
+
+    def dot(a, b):
+        return (a * b).sum((-2, -1), keepdim=True)
+
+    tiny = torch.finfo(v.dtype).tiny
+    x = torch.zeros_like(v)
+    r = v.clone()
+    d = r.clone()
+    rs = dot(r, r)
+    stop = (tol * tol) * dot(v, v)
+    for _ in range(maxiter):
+        active = rs > stop
+        if not bool(active.any()):
+            break
+        ad = matvec(d)
+        step = torch.where(active, rs / dot(d, ad).clamp_min(tiny),
+                           torch.zeros_like(rs))
+        x = x + step * d
+        r = r - step * ad
+        rs_new = dot(r, r)
+        beta = torch.where(active, rs_new / rs.clamp_min(tiny), torch.zeros_like(rs))
+        d = r + beta * d
+        rs = torch.where(active, rs_new, rs)
+    if mask is not None:
+        x = x * mask[..., None]
+    return x

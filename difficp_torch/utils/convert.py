@@ -5,7 +5,9 @@ targets and the L-BFGS state threaded between ``Reg_opt`` calls) into a port
 ``DiffPSR``, so both packages can continue from the same point;
 ``psr_state_to_numpy`` is the reverse.  Arrays are keyed by the attribute
 names both packages use; a GMM is a dict of its five fields and the curvature
-memory a dict of the ``LBFGSMemory`` fields.
+memory a dict of the ``LBFGSMemory`` fields.  The support travels as
+``support_scheme`` and ``rho`` beside the ``q0`` / ``qmask`` arrays, so a
+grid-support state continues with the same grid.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from difficp_torch.utils.spec import as_tensor
 
 _ARRAYS = ("a0", "q0", "qmask", "x0", "xmask", "x1", "y", "ptw")
 _LANE_STATE = ("_reg_alpha", "_reg_alpha_qn")
+_SUPPORT = ("support_scheme", "rho")
 
 
 def gmm_state_from_numpy(mu, w, sigma, eta0, vol0, device) -> GMMState:
@@ -37,8 +40,8 @@ def load_psr_state(psr, arrays: dict):
     """Load a mid-run state into a port ``DiffPSR`` of the same shapes.
 
     ``arrays`` keys: ``gmm`` (list over structures of dicts mu/w/sigma/eta0/
-    vol0), the point arrays of ``_ARRAYS``, ``Cfe`` (list) and ``FE``, and
-    the threaded ``_reg_alpha``, ``_reg_alpha_qn``, ``_reg_memory`` (dict) and
+    vol0), the point arrays of ``_ARRAYS``, ``support_scheme`` and ``rho``,
+    ``Cfe`` (list) and ``FE``, and the threaded ``_reg_alpha``, ``_reg_alpha_qn``, ``_reg_memory`` (dict) and
     ``_reg_stall``, each optional (None = cold).  The threaded entry
     (value, grad) is not carried: the next ``Reg_opt`` re-evaluates it."""
     dev = psr.device
@@ -47,6 +50,9 @@ def load_psr_state(psr, arrays: dict):
     for name in _ARRAYS:
         if name in arrays:
             setattr(psr, name, as_tensor(arrays[name], dev))
+    for name in _SUPPORT:
+        if name in arrays:
+            setattr(psr, name, arrays[name])
     if "Cfe" in arrays:
         psr.Cfe = [as_tensor(c, dev) for c in arrays["Cfe"]]
     for name in _LANE_STATE:
@@ -70,6 +76,8 @@ def psr_state_to_numpy(psr) -> dict:
                    for g in psr.gmm]}
     for name in _ARRAYS + _LANE_STATE + ("_reg_stall",):
         out[name] = host(getattr(psr, name, None))
+    for name in _SUPPORT:
+        out[name] = getattr(psr, name)
     out["Cfe"] = [host(c) for c in psr.Cfe]
     mem = getattr(psr, "_reg_memory", None)
     out["_reg_memory"] = None if mem is None else {

@@ -65,6 +65,10 @@ class PaddedFrames(NamedTuple):
     def nmax(self):
         return self.x.shape[1]
 
+    def unpad(self, k):
+        """Frame k's real points, as a host numpy array."""
+        return self.x[k, : int(self.n[k])].detach().cpu().numpy()
+
 
 def pad_frames(sets: Sequence, device, nmax: int | None = None,
                pad_to_multiple: int = 8) -> PaddedFrames:

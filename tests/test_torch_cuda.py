@@ -1,5 +1,5 @@
-"""The CUDA kernels of difficp_torch/csrc/rhs_self.cu on the card, against
-their plain PyTorch versions.
+"""The CUDA kernels of difficp_torch/csrc/ (rhs_self.cu, rhs_ext.cu,
+kmin2.cu) on the card, against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has a card and no JAX.  From the repository root there:
@@ -164,3 +164,165 @@ def test_shoot_kernel_route_matches_dense_on_card(cuda, scheme):
         backend.set_backend(None)
     for x, ref in zip(res["kernel"], res["dense"]):
         _close(x.detach(), ref.detach(), TOL_BWD)
+
+
+# ---------------------------------------------------------------------------
+# external-point RHS (csrc/rhs_ext.cu) and kmin2 (csrc/kmin2.cu)
+# ---------------------------------------------------------------------------
+
+def _ext_inputs(b, n, m, d, seed, device):
+    """Data in a unit box with a ragged mask, support on a grid-like set of
+    m points (some masked), random momenta and cotangents."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(b, n, d))
+    mx = (rng.uniform(size=(b, n)) > 0.1).astype(np.float64)
+    mx[:, -3:] = 0.0
+    q = rng.uniform(-0.05, 1.05, size=(b, m, d))
+    p = 0.05 * rng.normal(size=(b, m, d))
+    mq = (rng.uniform(size=(b, m)) > 0.05).astype(np.float64)
+    gx = rng.normal(size=(b, n, d))
+    gc = rng.normal(size=(b,))
+    return [torch.tensor(t, dtype=torch.float32, device=device)
+            for t in (x, mx, q, p, mq, gx, gc)]
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("withlogdet", [True, False])
+def test_ext_kernels_match_plain(cuda, d, withlogdet):
+    """The three ext kernels against their plain versions in float64 on the
+    same float32 inputs: N = 5,003 data points (several dq/dp chunks, not a
+    multiple of the block), M = 301 support points, two frames."""
+    from difficp_torch.ops import rhs_ext as RE
+
+    x, mx, q, p, mq, gx, gc = _ext_inputs(2, 5003, 301, d, seed=d, device=cuda)
+    vx, dc = RE.rhs_ext_fwd(x, mx, q, p, mq, SIG, withlogdet)
+    dx = RE.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, SIG, withlogdet)
+    dq, dp = RE.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, SIG, withlogdet)
+    torch.cuda.synchronize()
+    x8, mx8, q8, p8, mq8, gx8, gc8 = (t.double() for t in (x, mx, q, p, mq, gx, gc))
+    rvx, rdc = RE.rhs_ext_fwd_reference(x8, mx8, q8, p8, mq8, SIG, withlogdet)
+    rdx = RE.rhs_ext_bwd_dx_reference(x8, mx8, gx8, q8, p8, mq8, gc8, SIG, withlogdet)
+    rdq, rdp = RE.rhs_ext_bwd_dqdp_reference(x8, mx8, gx8, q8, p8, mq8, gc8, SIG,
+                                             withlogdet)
+    _close(vx, rvx, TOL_FWD)
+    assert float((dc.double().sum(-1) - rdc.sum(-1)).abs().max()) <= TOL_FWD * float(
+        rdc.abs().sum(-1).max()) + 1e-30
+    _close(dx, rdx, TOL_BWD)
+    _close(dq, rdq, TOL_BWD)
+    _close(dp, rdp, TOL_BWD)
+    assert bool((vx[mx == 0] == 0).all()) and bool((dq[mq == 0] == 0).all())
+
+
+def test_ext_frames_are_independent(cuda):
+    from difficp_torch.ops import rhs_ext as RE
+
+    x, mx, q, p, mq, gx, gc = _ext_inputs(3, 2100, 90, 2, seed=4, device=cuda)
+
+    def run(sl):
+        a = [t[sl] for t in (x, mx, gx, q, p, mq, gc)]
+        return (RE.rhs_ext_fwd(a[0], a[1], a[3], a[4], a[5], SIG, True)
+                + (RE.rhs_ext_bwd_dx(*a, SIG, True),)
+                + RE.rhs_ext_bwd_dqdp(*a, SIG, True))
+
+    batch = run(slice(0, 3))
+    for k in range(3):
+        for got, one in zip(batch, run(slice(k, k + 1))):
+            torch.testing.assert_close(got[k:k + 1], one, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_kmin2_matches_plain(cuda, exclude_self):
+    """kmin2 against its plain version on duplicated points (ties), a masked
+    y and 4 x 3 leading frames; relative 1e-6 (one rounding of a square)."""
+    from difficp_torch.ops import kmin2 as K2
+
+    rng = np.random.default_rng(9)
+    n = 3001
+    y = rng.uniform(size=(4, 3, n, 2))
+    y[..., 100:200, :] = y[..., :100, :]  # exact duplicates
+    x = y if exclude_self else rng.uniform(size=(4, 3, 777, 2))
+    my = (rng.uniform(size=(4, 3, n)) > 0.1).astype(np.float64)
+    x, y, my = (torch.tensor(t, dtype=torch.float32, device=cuda) for t in (x, y, my))
+    m1, m2 = K2.kmin2(x, y, my, exclude_self)
+    r1, r2 = K2.kmin2_reference(x.double(), y.double(), my.double(), exclude_self)
+    for got, ref in ((m1, r1), (m2, r2)):
+        torch.testing.assert_close(got.double(), ref, rtol=1e-6, atol=1e-12)
+    assert bool((m2 >= m1).all())
+
+
+def test_ext_launch_counters(cuda):
+    """One loss+grad of an Euler shoot with external points on the kernel
+    route (nt = 4): per step one self and one ext forward, one self
+    backward, one dx and one dq/dp launch; the Hamiltonian adds one self
+    forward; one coverage check is one kmin2 launch for every step and
+    frame."""
+    from difficp_torch.ops import kmin2 as K2
+    from difficp_torch.ops import rhs_ext as RE
+
+    x, mx, q, p0, mq, *_ = _ext_inputs(2, 900, 40, 2, seed=6, device=cuda)
+    cfg = lddmm.make_config(sigma=SIG, lambd=200.0, version="hybrid", nt=4,
+                            scheme="Euler")
+    for counts in (RS.launches, RE.launches, K2.launches):
+        for key in counts:
+            counts[key] = 0
+    backend.set_backend("kernel")
+    try:
+        p = p0.clone().requires_grad_(True)
+        final, _ = lddmm.shoot(cfg, q, p, x, mq, mx)
+        loss = lddmm.trajloss(cfg, q, p, final.cost, mq).sum() + (final.x ** 2).sum()
+        torch.autograd.grad(loss, p)
+        _, traj = lddmm.shoot(cfg, q, p.detach(), x, mq, mx, save_traj=True)
+        backend.check_coverage(traj.x, traj.q, SIG, 2.0, mx, mq)
+    finally:
+        backend.set_backend(None)
+    assert RS.launches == {"rhs_self_fwd": 4 + 1 + 4, "rhs_self_bwd": 4}
+    assert RE.launches == {"rhs_ext_fwd": 8, "rhs_ext_bwd_dx": 4, "rhs_ext_bwd_dqdp": 4}
+    assert K2.launches == {"kmin2": 1}
+
+
+def test_ext_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from difficp_torch.ops import kmin2 as K2
+    from difficp_torch.ops import rhs_ext as RE
+
+    x, mx, q, p, mq, gx, gc = _ext_inputs(1, 64, 16, 2, seed=2, device=cuda)
+    with pytest.raises(ValueError):
+        RE.rhs_ext_fwd(x.double(), mx, q, p, mq, SIG, True)
+    with pytest.raises(ValueError):
+        RE.rhs_ext_fwd(x, mx[..., :-1], q, p, mq, SIG, True)
+    with pytest.raises(ValueError):
+        RE.rhs_ext_fwd(x[None], mx[None], q, p, mq, SIG, True)  # frames differ
+    with pytest.raises(ValueError):
+        RE.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc.cpu(), SIG, True)
+    with pytest.raises(ValueError):
+        RE.rhs_ext_bwd_dqdp(x, mx, gx.transpose(-1, -2).contiguous().transpose(-1, -2),
+                            q, p, mq, gc, SIG, True)
+    with pytest.raises(ValueError):
+        K2.kmin2(x, q, mq[..., :-1])
+    with pytest.raises(ValueError):
+        K2.kmin2(x, q, mq, exclude_self=True)
+    x4 = torch.zeros((1, 64, 4), device=cuda)
+    with pytest.raises(ValueError):
+        K2.kmin2(x4, x4)
+
+
+@pytest.mark.parametrize("scheme", ["Euler", "Ralston"])
+def test_ext_shoot_kernel_route_matches_dense_on_card(cuda, scheme):
+    """Shooting with external points and its gradient on the card: the
+    kernel route against the dense route, N = 700, M = 60, hybrid."""
+    x, mx, q, p0, mq, *_ = _ext_inputs(2, 700, 60, 2, seed=5, device=cuda)
+    cfg = lddmm.make_config(sigma=SIG, lambd=200.0, version="hybrid", nt=5,
+                            scheme=scheme)
+    res = {}
+    try:
+        for mode in ("kernel", "dense"):
+            backend.set_backend(mode)
+            p = p0.clone().requires_grad_(True)
+            final, _ = lddmm.shoot(cfg, q, p, x, mq, mx)
+            loss = (lddmm.trajloss(cfg, q, p, final.cost, mq).sum()
+                    + (final.x ** 2).sum())
+            res[mode] = (final.q, final.p, final.x, final.cost, loss,
+                         torch.autograd.grad(loss, p)[0])
+    finally:
+        backend.set_backend(None)
+    for got, ref in zip(res["kernel"], res["dense"]):
+        _close(got.detach(), ref.detach(), TOL_BWD)

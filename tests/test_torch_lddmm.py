@@ -202,5 +202,13 @@ def test_seed_alpha_and_quad_dataloss_match_jax():
 
 
 def test_external_points_not_ported():
-    with pytest.raises(NotImplementedError):
-        tl.shoot(cfg_for(tl, "hybrid", "Euler"), _t(Q0), _t(P0), _t(Q0))
+    """External points are ported at eta = 0; with the gradcomponent field
+    (eta != 0) the kernel route still raises, naming its later slice."""
+    cfg = tl.make_config(sigma=0.5, lambd=2.0, gradcomponent=True, withlogdet=True,
+                         nt=2, scheme="Euler")
+    TB.set_backend("kernel")
+    try:
+        with pytest.raises(NotImplementedError, match="eta != 0"):
+            tl.shoot(cfg, _t(Q0), _t(P0), _t(Q0))
+    finally:
+        TB.set_backend(None)

@@ -1,4 +1,4 @@
-"""The slice as a whole: the port's DiffPSR with dense support and its
+"""The dense-support slice: the port's DiffPSR with dense support and its
 icp_two_set entry against the JAX package on the same data.
 
 The bound on the free-energy sequence is the one the JAX package uses between
@@ -16,6 +16,7 @@ from difficp_tpu.api.icp_two_set import icp_two_set as j_icp_two_set
 from difficp_tpu.models import gmm as jg
 from difficp_tpu.models import lddmm as jl
 from difficp_tpu.models.psr import DiffPSR as JDiffPSR
+from difficp_torch.api.icp_atlas import icp_atlas as t_icp_atlas
 from difficp_torch.api.icp_two_set import icp_two_set as t_icp_two_set
 from difficp_torch.models import gmm as tg
 from difficp_torch.models import lddmm as tl
@@ -183,29 +184,43 @@ def test_icp_two_set_matches_jax():
 
 
 def test_unported_routes_raise():
+    """What the port does not run yet raises, naming its later slice: decim
+    support, affine types, the {"set", "C"} atlas init, lambda "auto"; and
+    backward_precision, which has nothing to choose here."""
     psr = _torch_psr()
-    with pytest.raises(NotImplementedError):
-        psr.set_support_scheme("grid", rho=1.0)
-    with pytest.raises(NotImplementedError):
-        psr.run(2)
+    with pytest.raises(NotImplementedError, match="decim"):
+        psr.set_support_scheme("decim", rho=1.0)
     base = dict(GMM_parameters={"sigma": 0.1, "optimize_sigma": True}, printstuff=False,
                 device="cpu")
-    with pytest.raises(NotImplementedError):  # default support is the grid
-        t_icp_two_set(X, SPIRAL["x0"], registration_parameters={
-            "type": "diffeomorphic", "sigma_LDDMM": 0.2, "lambda_LDDMM": 500.0}, **base)
+    diffeo = {"type": "diffeomorphic", "sigma_LDDMM": 0.2, "lambda_LDDMM": 500.0}
+    with pytest.raises(NotImplementedError, match="decim"):
+        t_icp_two_set(X, SPIRAL["x0"], registration_parameters=diffeo,
+                      numerical_options={"support_LDDMM": {"scheme": "decim"}}, **base)
     with pytest.raises(NotImplementedError):
         t_icp_two_set(X, SPIRAL["x0"], registration_parameters={"type": "rigid"}, **base)
-    with pytest.raises(ValueError, match="backward_precision"):  # one backward here
+    with pytest.raises(NotImplementedError, match="auto"):
         t_icp_two_set(X, SPIRAL["x0"], registration_parameters={
-            "type": "diffeomorphic", "sigma_LDDMM": 0.2, "lambda_LDDMM": 500.0},
-            numerical_options={"support_LDDMM": {"scheme": "dense"},
-                               "backward_precision": "accurate"}, **base)
+            **diffeo, "lambda_LDDMM": "auto"}, **base)
+    with pytest.raises(ValueError, match="backward_precision"):  # one backward here
+        t_icp_two_set(X, SPIRAL["x0"], registration_parameters=diffeo,
+                      numerical_options={"support_LDDMM": {"scheme": "dense"},
+                                         "backward_precision": "accurate"}, **base)
+    frames = [SPIRAL["x0"], SPIRAL["x1"]]
+    with pytest.raises(NotImplementedError, match="gmm.fit"):
+        t_icp_atlas(frames, {"init_components": {"set": 0, "C": 10}}, diffeo,
+                    printstuff=False, device="cpu")
+    with pytest.raises(NotImplementedError):
+        t_icp_atlas(frames, {"init_components": 10}, {"type": "general_affine"},
+                    printstuff=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="auto"):
+        t_icp_atlas(frames, {"init_components": 10}, {**diffeo, "lambda_LDDMM": "auto"},
+                    printstuff=False, device="cpu")
     TB.set_backend(None)
 
 
 def test_entry_points_need_cuda_unless_cpu_asked():
-    """Without CUDA, DiffPSR and icp_two_set with no device raise instead of
-    carrying on on the CPU."""
+    """Without CUDA, DiffPSR, icp_two_set and icp_atlas with no device raise
+    instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     state, _ = tg.create(MU, sigma=0.05)
@@ -215,3 +230,7 @@ def test_entry_points_need_cuda_unless_cpu_asked():
         t_icp_two_set(X, SPIRAL["x0"], {"sigma": 0.1, "optimize_sigma": True},
                       {"type": "diffeomorphic", "sigma_LDDMM": 0.2, "lambda_LDDMM": 500.0},
                       {"support_LDDMM": {"scheme": "dense"}}, printstuff=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_icp_atlas([X, SPIRAL["x0"]], {"init_components": 10},
+                    {"type": "diffeomorphic", "sigma_LDDMM": 0.2, "lambda_LDDMM": 500.0},
+                    printstuff=False)

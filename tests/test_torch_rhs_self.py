@@ -241,8 +241,9 @@ def test_backend_routes():
             _close(x, r, 1e-5)
         with pytest.raises(NotImplementedError):
             TB.lddmm_rhs_self(qt, pt, SIG, 0.5, True, mt)
-        with pytest.raises(NotImplementedError):
-            TB.second_min_sqdist(qt, mt)
+        # kmin2 (its plain version here) takes the nearest-neighbour search
+        np.testing.assert_allclose(TB.second_min_sqdist(qt, mt).numpy(),
+                                   TR.second_min_sqdist(qt, mt).numpy(), rtol=1e-6)
         with pytest.raises(NotImplementedError):
             TB.set_backend("blockwise")
         with pytest.raises(ValueError):
