@@ -6,7 +6,8 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases, each printing JSON lines with its seconds:
   1. device      the card's name and power limit (nvidia-smi);
   2. build       nvcc builds the kernels of difficp_torch/csrc from source,
-                 one nvcc per source, all started together;
+                 one nvcc per source, all started together (and, for
+                 comparison, one nvcc call over all sources is timed);
   3. check       each kernel against its plain PyTorch version on the card
                  (the plain version evaluated in float64 on the same float32
                  inputs): the self RHS at M = 16,381 (ragged, ~10% masked) and
@@ -14,10 +15,13 @@ Phases, each printing JSON lines with its seconds:
                  65,536 data points against their grid support at sigma = 0.05
                  and a masked custom support; kmin2 on 33 leading frames with
                  duplicated points, both modes; d = 2 and 3, logdet on and off;
-  4. timing      each kernel at the shape its main path gives it, with CUDA
-                 events (median of 15), beside its plain version, its bound
-                 and, where one PyTorch call computes the same function, that
-                 call's time;
+  4. timing      each kernel at the shape its main path gives it: first held
+                 against its plain version in float64 there (the grid path's
+                 10 frames of 65,536 x M for the self and ext kernels, its 110
+                 coverage frames for kmin2), then timed with CUDA events
+                 (median of 15) beside its plain version, its bound and, where
+                 one PyTorch call computes the same function, that call's
+                 time;
   5. main path   (dense support) examples/run_large.main at N = 65,536;
                  then a small run through the kernel route against the dense
                  route on the card;
@@ -96,6 +100,20 @@ def nvidia_smi_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def one_call_build_seconds(_build):
+    """Wall seconds of one nvcc call over every source with the build's
+    flags (nvcc then compiles them one after another), beside the build's
+    one nvcc per source, all started together."""
+    out = _build.BUILD_DIR / "one_call_probe.so"
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *map(str, sources),
+                    "-o", str(out)], capture_output=True, check=True)
+    seconds = time.perf_counter() - t0
+    out.unlink()
+    return seconds
 
 
 def cuda_ms(fn, reps):
@@ -474,10 +492,12 @@ def phase_check_ext(re, k2):
     return worst
 
 
-def phase_timing_ext(re, k2):
+def phase_timing_ext(rs, re, k2):
     """Each new kernel at the grid main path's shape (K = 10, N = 65,536,
     the run's grid M, d = 2); kmin2 at the coverage pass's (nt + 1) K
-    frames.  CUDA events, median of 15."""
+    frames.  Each kernel of the grid path, the self kernels on the support
+    included, is first held against its plain version in float64 on the same
+    inputs.  Then CUDA events, median of 15."""
     import numpy as np
     import torch
     from difficp_torch.utils.point_sets import grid_support
@@ -487,21 +507,95 @@ def phase_timing_ext(re, k2):
     x = torch.as_tensor(np.stack(grid_frames(k, n))).cuda()
     qg = torch.as_tensor(grid_support(x.reshape(-1, d).cpu().numpy(), GRID_SIGMA))
     m = qg.shape[0]
-    q = qg.cuda().expand(k, m, d).contiguous()
     g = torch.Generator(device="cuda").manual_seed(3)
+    # the support of each frame moved a little, as along a trajectory
+    q = qg.cuda() + 0.1 * GRID_SIGMA * torch.randn((k, m, d), generator=g, device="cuda")
     p = 0.05 * torch.randn(q.shape, generator=g, device="cuda")
     mx = torch.ones((k, n), device="cuda")
     mq = torch.ones((k, m), device="cuda")
     gx = torch.randn(x.shape, generator=g, device="cuda")
     gc = torch.randn((k,), generator=g, device="cuda")
+    gv = torch.randn(q.shape, generator=g, device="cuda")
+    gw = torch.randn(q.shape, generator=g, device="cuda")
     # the work this run's data needs: every unmasked (x, q) pair once
     pairs = float((mx.sum(-1) * mq.sum(-1)).sum())
     side_x, side_q = 4.0 * k * n, 4.0 * k * m
-    xs = [x.expand(nt + 1, k, n, d).reshape(-1, n, d).contiguous(),
-          q.expand(nt + 1, k, m, d).reshape(-1, m, d).contiguous(),
+    # the coverage pass: nt + 1 time steps of every frame, each moved a little
+    xs = [(x + 0.1 * GRID_SIGMA * torch.randn((nt + 1, k, n, d), generator=g,
+                                              device="cuda")).reshape(-1, n, d),
+          (q + 0.1 * GRID_SIGMA * torch.randn((nt + 1, k, m, d), generator=g,
+                                              device="cuda")).reshape(-1, m, d),
           mq.expand(nt + 1, k, m).reshape(-1, m).contiguous()]
     cov_pairs = float(xs[0].shape[0]) * n * m
     sig = GRID_SIGMA
+
+    worst = {}
+
+    def hold(name, got, ref, tol, dcost=None, **shape):
+        rel = max(rel_err(a, r) for a, r in zip(got, ref))
+        ab = max(abs_err(a, r) for a, r in zip(got, ref))
+        rec = {"phase": "check_main_shape", "kernel": name, **shape}
+        if dcost is not None:
+            # each frame's dcost against the sum of its terms' magnitudes
+            dc, rdc = dcost
+            dc_rel = float((dc.double().sum(-1) - rdc.sum(-1)).abs().max()
+                           / rdc.abs().sum(-1).max().clamp_min(1e-300))
+            rec["dcost_rel_err"] = dc_rel
+            rel = max(rel, dc_rel)
+        ok = rel <= tol
+        emit({**rec, "rel_err": rel, "abs_err": ab, "tol": tol, "ok": ok})
+        if not ok:
+            fail("check_main_shape", f"{name} disagrees with its plain version "
+                                     f"at the grid path's shape {shape}")
+        old = worst.get(name, (0.0, 0.0))
+        worst[name] = [max(old[0], rel), max(old[1], ab)]
+
+    f64 = [t.double() for t in (x, mx, q, p, mq, gx, gc, gv, gw)]
+    x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8 = f64
+    shape = {"frames": k, "N": n, "M": m, "d": d}
+    # logdet off is the grid path's mode (and a zero dcost cotangent for the
+    # self backward); logdet on covers the rest of each kernel
+    for wl in (True, False):
+        got = rs.rhs_self_fwd(q, p, mq, sig, wl)
+        ref = rs.rhs_self_fwd_reference(q8, p8, mq8, sig, wl)
+        hold("rhs_self_fwd", got[:2], ref[:2], TOL_FWD, (got[2], ref[2]),
+             withlogdet=wl, **shape)
+        cot, cot8 = (gc, gc8) if wl else (torch.zeros_like(gc), torch.zeros_like(gc8))
+        hold("rhs_self_bwd", rs.rhs_self_bwd(q, p, mq, gv, gw, cot, sig, wl),
+             rs.rhs_self_bwd_reference(q8, p8, mq8, gv8, gw8, cot8, sig, wl),
+             TOL_BWD, withlogdet=wl, **shape)
+        vx, dc = re.rhs_ext_fwd(x, mx, q, p, mq, sig, wl)
+        rvx, rdc = re.rhs_ext_fwd_reference(x8, mx8, q8, p8, mq8, sig, wl)
+        hold("rhs_ext_fwd", [vx], [rvx], TOL_FWD, (dc, rdc), withlogdet=wl, **shape)
+        hold("rhs_ext_bwd_dx", [re.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sig, wl)],
+             [re.rhs_ext_bwd_dx_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl)],
+             TOL_BWD, withlogdet=wl, **shape)
+        hold("rhs_ext_bwd_dqdp", re.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sig, wl),
+             re.rhs_ext_bwd_dqdp_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl),
+             TOL_BWD, withlogdet=wl, **shape)
+    del f64, x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8, got, ref, vx, dc, rvx, rdc
+    # kmin2 over all (nt + 1) K frames in one launch; its float64 plain version
+    # one time step (K frames) at a time, to bound its memory
+    m1, m2 = k2.kmin2(*xs)
+    refs = [k2.kmin2_reference(*(t[s:s + k].double() for t in xs))
+            for s in range(0, xs[0].shape[0], k)]
+    r1, r2 = (torch.cat([r[i] for r in refs]) for i in (0, 1))
+    del refs
+    # relative to each distance: a plain rel_err over the largest would hide
+    # the small ones the coverage check reads
+    rel = max(float(((a.double() - b).abs() / b.abs().clamp_min(1e-30)).max())
+              for a, b in ((m1, r1), (m2, r2)))
+    ab = max(abs_err(a, b) for a, b in ((m1, r1), (m2, r2)))
+    ok = rel <= TOL_KMIN2
+    emit({"phase": "check_main_shape", "kernel": "kmin2", "frames": xs[0].shape[0],
+          "N": n, "M": m, "d": d, "rel_err": rel, "abs_err": ab, "tol": TOL_KMIN2,
+          "ok": ok})
+    if not ok:
+        fail("check_main_shape", "kmin2 disagrees with its plain version at the "
+                                 "coverage pass's shape")
+    worst["kmin2"] = [rel, ab]
+    del m1, m2, r1, r2
+    torch.cuda.empty_cache()
 
     def library_kmin2():
         dist = torch.cdist(xs[0], xs[1])
@@ -548,7 +642,7 @@ def phase_timing_ext(re, k2):
         emit({"phase": "timing", "kernel": name, "d": d, **out[name]})
     torch.cuda.empty_cache()
     emit({"phase": "timing_ext_done", "seconds": time.perf_counter() - t0})
-    return out
+    return out, worst
 
 
 def phase_grid_main_path(counters):
@@ -759,7 +853,8 @@ def main():
     _build.build(force=True)
     _build.library()
     regs = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln]
-    emit({"phase": "build", "seconds": _build.build_seconds, "ptxas": regs})
+    emit({"phase": "build", "seconds": _build.build_seconds,
+          "one_call_seconds": one_call_build_seconds(_build), "ptxas": regs})
 
     counters = {"rhs_self": rs.launches, "rhs_ext": re.launches, "kmin2": k2.launches}
     t0 = time.perf_counter()
@@ -769,7 +864,10 @@ def main():
     t0 = time.perf_counter()
     timing = phase_timing(rs)
     emit({"phase": "timing_done", "seconds": time.perf_counter() - t0})
-    timing.update(phase_timing_ext(re, k2))
+    timing_ext, worst_main = phase_timing_ext(rs, re, k2)
+    timing.update(timing_ext)
+    for name, (rel, ab) in worst_main.items():
+        worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
     t0 = time.perf_counter()
     dense_launches = phase_main_path(rs, backend, run_large, timing)
     emit({"phase": "main_path_done", "seconds": time.perf_counter() - t0})

@@ -24,7 +24,7 @@
 //
 // What bounds them on an H100: operations.  Every (x, q) pair costs one
 // exponential on the MUFU ex2 unit (16 per SM per clock, 1/16 of the FP32
-// lanes' rate) and 5 d + 1 (forward), 11 d - 1 (dx) and 11 d + 3 (dq, dp)
+// lanes' rate) and 5 d + 1 (forward), 9 d + 1 (dx) and 9 d + 3 (dq, dp)
 // FP32 operations at least (term lists in ops/rhs_ext.py): at d = 2 the
 // exponential alone takes longer than the forward's FP32 work.  The bytes
 // are O((N + M) d) per frame.  On the grid-support path the support is small

@@ -40,6 +40,10 @@ def ops_per_pair(d: int) -> int:
         delta = x_i - y_j                           d
         r2 = |delta|^2                              2d - 1
         m2 = min(m2, max(m1, r2)); m1 = min(m1, r2) 3
+
+    The expanded form |y_j|^2 - 2 x_i.y_j (|x_i|^2 left out of the ranking)
+    would take 2d, but it loses the small distances the coverage check reads
+    to cancellation, so the count keeps the difference form.
     """
     return 3 * d + 2
 

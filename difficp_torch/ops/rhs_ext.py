@@ -63,24 +63,32 @@ def fwd_ops_per_pair(d: int) -> int:
 
     and one exponential, on the MUFU.  The kernel forms p_j.delta_ij per
     pair instead, which needs no per-row epilogue.
+
+    r2 is counted in the difference form in all three counts.  The expanded
+    form |x_i|^2 + |q_j|^2 - 2 x_i.q_j (norms per point) costs 2d + 1, the
+    same 5 at d = 2, where the bounds are taken, and loses the exponent to
+    cancellation at |x|/sigma ~ 20 (u |x|^2 / 2 ~ 200 against float32's
+    6e-8 relative rounding).
     """
     return 5 * d + 1
 
 
 def dx_ops_per_pair(d: int) -> int:
     """The least FP32 work of dx per pair, counted as ``fwd_ops_per_pair``
-    counts it (Gx_l = mx_l gx_l and c_l = gc u mx_l per row):
+    counts it.  With Gx_l = mx_l gx_l, c_l = gc u mx_l and
+    g'_l = Gx_l + c_l x_l per data row and q_j.p_j per support point,
+    (Gx_l + c_l delta).p_j = g'_l.p_j - c_l (q_j.p_j):
 
         delta = x_l - q_j                           d
         r2                                          2d - 1
-        w = Gx_l + c_l delta                        2d
-        s = k (w.p_j)                               2d
+        s = k (g'_l.p_j - c_l (q_j.p_j))            2d + 2
         e_l += s delta                              2d
         a_l += k p_j                                2d
 
-    with dx_l = -u e_l + c_l a_l per row; the kernel does the same.
+    with dx_l = -u e_l + c_l a_l per row.  The kernel forms
+    w = Gx_l + c_l delta per pair instead.
     """
-    return 11 * d - 1
+    return 9 * d + 1
 
 
 def dqdp_ops_per_pair(d: int) -> int:
@@ -88,21 +96,23 @@ def dqdp_ops_per_pair(d: int) -> int:
     counted as ``fwd_ops_per_pair`` counts it.  With e = q_l - x_i,
     h_i = Gx_i + gc u mx_i x_i (per data point) and c_l = gc u (p_l.q_l)
     (per support row), p_l.e = p_l.q_l - p_l.x_i turns the dq coefficient
-    -u k (Gx_i.p_l) + gc u^2 k mx_i (p_l.e) into -u s:
+    -u k (Gx_i.p_l) + gc u^2 k mx_i (p_l.e) into -u s, and
+    sum_i k Gx_i - gc u sum_i km e = sum_i k h_i - gc u n_l q_l turns dp into
+    one sum:
 
         e = q_l - x_i                               d
         r2                                          2d - 1
         km = k mx_i                                 1
         s = k (h_i.p_l) - c_l km                    2d + 2
         a_l += s e                                  2d
-        g_l += k Gx_i                               2d
-        b_l += km e                                 2d
+        g_l += k h_i                                2d
         n_l += km                                   1
 
-    with dq_l = mq_l (-u a_l - gc u n_l p_l), dp_l = mq_l (g_l - gc u b_l)
-    per row.  The kernel forms p_l.e per pair instead.
+    with dq_l = mq_l (-u a_l - gc u n_l p_l), dp_l = mq_l (g_l - gc u n_l q_l)
+    per row.  The kernel forms p_l.e per pair and sums k Gx_i and km e
+    apart instead.
     """
-    return 11 * d + 3
+    return 9 * d + 3
 
 
 # ---------------------------------------------------------------------------

@@ -162,7 +162,8 @@ def _pair_terms(x, mx, q, p, mq, gx, gc, u):
     a_qp = np.zeros(n)
     dx_e, dx_a = np.zeros_like(x), np.zeros_like(x)
     cl = gc * u * mx
-    dq_a, dq_g, dq_b = np.zeros_like(q), np.zeros_like(q), np.zeros_like(q)
+    g1 = big_g + cl[:, None] * x                  # g'_l per data row
+    dq_a, dq_h = np.zeros_like(q), np.zeros_like(q)
     dq_n = np.zeros(m)
     h = big_g + gc * u * mx[:, None] * x          # per data point
     c_l = gc * u * (p * q).sum(1)                 # per support row
@@ -175,8 +176,7 @@ def _pair_terms(x, mx, q, p, mq, gx, gc, u):
             vx[i] += k * pt[j]
             a_qp[i] += k * qp[j]
             # dx
-            w = big_g[i] + cl[i] * delta
-            s = k * (w @ pt[j])
+            s = k * (g1[i] @ pt[j] - cl[i] * qp[j])
             dx_e[i] += s * delta
             dx_a[i] += k * pt[j]
             # dq, dp (row j of the support, e = q_j - x_i)
@@ -184,14 +184,13 @@ def _pair_terms(x, mx, q, p, mq, gx, gc, u):
             km = k * mx[i]
             s2 = k * (h[i] @ p[j]) - c_l[j] * km
             dq_a[j] += s2 * e
-            dq_g[j] += k * big_g[i]
-            dq_b[j] += km * e
+            dq_h[j] += k * h[i]
             dq_n[j] += km
     vx_out = mx[:, None] * vx
     dcost = u * (mx * ((x * vx).sum(1) - a_qp)).sum()
     dx = -u * dx_e + cl[:, None] * dx_a
     dq = mq[:, None] * (-u * dq_a - gc * u * dq_n[:, None] * p)
-    dp = mq[:, None] * (dq_g - gc * u * dq_b)
+    dp = mq[:, None] * (dq_h - gc * u * dq_n[:, None] * q)
     return vx_out, dcost, dx, dq, dp
 
 
@@ -210,7 +209,7 @@ def test_pair_terms_match_plain_versions(d):
     dq, dp = RE.rhs_ext_bwd_dqdp_reference(xt, mxt, gxt, qt, pt, mqt, gct, SIG, True)
     for got, ref in zip((vx, dc.sum(), dx, dq, dp), want):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10, atol=1e-12)
-    assert (RE.fwd_ops_per_pair(2), RE.dx_ops_per_pair(2), RE.dqdp_ops_per_pair(2)) == (11, 21, 25)
+    assert (RE.fwd_ops_per_pair(2), RE.dx_ops_per_pair(2), RE.dqdp_ops_per_pair(2)) == (11, 19, 21)
 
 
 def test_dense_reductions_match_jax_any_eta():
