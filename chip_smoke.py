@@ -34,7 +34,33 @@ Phases, each printing JSON lines with its seconds:
   9. api grid    icp_two_set and icp_atlas with default numerical options;
  10. profile     a torch.profiler trace of one outer iteration of the grid
                  main path: device-busy share, top CUDA operations, launches,
-                 host time between launches.
+                 host time between launches;
+ 11. check eta   the gradcomponent (eta != 0) slice's kernels against their
+                 plain versions in float64: the generic kernel-sum (ksum) at
+                 3, 6, 9, 20 and 121 columns (d = 2) and 333 (d = 3), masked,
+                 several frames, a shared y and a split y axis; the ETA
+                 instances of the self and ext forward kernels; the ETA
+                 instances at eta = 0 against the eta = 0 instances, bit for
+                 bit;
+ 12. timing eta  each of them at the shapes the two eta paths give it, first
+                 held against its float64 plain version there, then timed
+                 beside its plain version and its bound;
+ 13. grid eta path  the grid main path with gradcomponent_LDDMM (version
+                 "logdet", eta = 1/500);
+ 14. dense eta path  examples/run_large.py's configuration with version
+                 "logdet" (eta = 1/200) at N = 8,192, driven as
+                 run_large.main drives DiffPSR; before it, the stability of
+                 its start (v2p's momenta for a zero field, one shoot) at
+                 8,192, 16,384 and 32,768 points, which sets that size;
+ 15. eta route agreement  the grid eta workload at 3 x 8,000 points through
+                 the kernel route and the dense route (one outer
+                 iteration and a stepwise Reg_opt); and the generated
+                 backward's float32 error at the grid path's geometry against
+                 float64 dense autograd (the poly-precision line);
+ 16. api eta     icp_two_set and icp_atlas with gradcomponent_LDDMM=True;
+ 17. profile eta a torch.profiler trace of one outer iteration of the grid
+                 eta path, cut to one L-BFGS step (reg_nmax = 1), with the
+                 host operators by their own CPU time.
 Each main path is driven with the launch counters set to 0 just before it
 and read just after.  Then the kernels line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure exits non-zero before
@@ -84,6 +110,23 @@ SIGMA = 0.1
 GRID_SIGMA = 0.05
 GRID_RUN = dict(max_em=25, em_tol=1e-3, reg_nmax=10, reg_tol=1e-3, reg_inner=10,
                 reg_ls=12)
+# the eta = 0 kernels, and the grid main path's FE sequence as this script
+# printed it before the kernels gained their ETA instances: the eta = 0
+# kernels are unchanged if it comes out bit for bit the same
+PR2_KERNELS = ("rhs_self_fwd", "rhs_self_bwd", "rhs_ext_fwd", "rhs_ext_bwd_dx",
+               "rhs_ext_bwd_dqdp", "kmin2")
+PR2_GRID_FE = [22501056.0, -1347914.25, -1391784.75, -1425462.25]
+# the gradcomponent slice: eta = 1 / lambda of the grid path (lambda = 500) and
+# of run_large's configuration (lambda = 200)
+GRID_ETA = 1.0 / 500.0
+DENSE_ETA = 1.0 / 200.0
+# the dense eta path's size: its start shoot diverges from 16,384 points on
+# (phase dense_eta_start)
+DENSE_ETA_N = 8192
+# the generated backward expands delta powers into raw monomials; above this
+# error at the grid path's geometry it is logged as a fault inherited from the
+# JAX package
+POLY_ERR_LOG = 1e-2
 
 
 def emit(obj):
@@ -158,6 +201,13 @@ def abs_err(x, ref):
     return float((x.double() - ref).abs().max())
 
 
+def monotone(fes, skip=()):
+    """Each free energy at most the one before it, within the slack of the
+    FE oracle (psr.update_FE), except at the positions in ``skip``."""
+    return all(b <= a + 1e-4 * abs(a) + 1e-6
+               for i, (a, b) in enumerate(zip(fes, fes[1:])) if i + 1 not in skip)
+
+
 def reset(*counters):
     for c in counters:
         for key in c:
@@ -189,10 +239,11 @@ def grid_frames(k, n, dim=2):
     return frames
 
 
-def grid_psr(k, n):
+def grid_psr(k, n, version="hybrid"):
     """bench.py's atlas workload (bench.py:82-105) at k frames of n points:
-    C = 20 GMM components from 20 points of frame 0, hybrid LDDMM at
-    sigma = 0.05, nt = 10 Euler, grid support with rho = 1."""
+    C = 20 GMM components from 20 points of frame 0, LDDMM ("hybrid", or
+    "logdet" for the gradcomponent model) at sigma = 0.05, lambda = 500,
+    nt = 10 Euler, grid support with rho = 1."""
     import numpy as np
     from difficp_torch.models import gmm, lddmm
     from difficp_torch.models.psr import DiffPSR
@@ -202,7 +253,7 @@ def grid_psr(k, n):
     state, _ = gmm.create(mu0, device="cuda")
     gcfg = gmm.GMMConfig(optimize_mu=True, optimize_sigma=True, optimize_w=True,
                          optimize_eta0=False)
-    lcfg = lddmm.make_config(sigma=GRID_SIGMA, lambd=5e2, version="hybrid", nt=10,
+    lcfg = lddmm.make_config(sigma=GRID_SIGMA, lambd=5e2, version=version, nt=10,
                              scheme="Euler")
     psr = DiffPSR(x, state, gcfg, lcfg, device="cuda")
     psr.printstuff = False
@@ -311,7 +362,9 @@ def phase_main_path(rs, backend, run_large, timing):
     x1 = psr.get_warped_data_points()
     # launches times each kernel's median time from the timing phase: an
     # estimate of the run's time inside the two kernels
-    kernel_seconds = sum(launches[k] * timing[k]["ms"] for k in launches) / 1e3
+    path = ("rhs_self_fwd", "rhs_self_bwd")
+    launches = {k: launches[k] for k in path}
+    kernel_seconds = sum(launches[k] * timing[k]["ms"] for k in path) / 1e3
     emit({"phase": "main_path", "n_points": n_points, "ls_steps": ls_steps,
           "seconds": seconds, "FE": psr.FE,
           "fe_increase_events": psr.fe_increase_events, "launches": launches,
@@ -369,10 +422,9 @@ def phase_api(rs, backend, icp_two_set, run_large):
            "FE_sequence": fes, "fe_increase_events": psr.fe_increase_events,
            "launches": dict(rs.launches)}
     emit(rec)
-    monotone = all(b <= a + 1e-4 * abs(a) + 1e-6 for a, b in zip(fes, fes[1:]))
-    if not (monotone and psr.fe_increase_events == 0 and math.isfinite(psr.FE)):
+    if not (monotone(fes) and psr.fe_increase_events == 0 and math.isfinite(psr.FE)):
         fail("api", "free energy not monotone")
-    if not all(v > 0 for v in rs.launches.values()):
+    if not all(rs.launches[k] > 0 for k in ("rhs_self_fwd", "rhs_self_bwd")):
         fail("api", "icp_two_set did not run through the kernels")
 
 
@@ -668,7 +720,8 @@ def phase_grid_main_path(counters):
     reg_s = time.perf_counter() - t2
     seconds = time.perf_counter() - t0
     launches = {name: dict(c) for name, c in counters.items()}
-    flat = {key: v for c in launches.values() for key, v in c.items()}
+    flat = {key: v for c in launches.values() for key, v in c.items()
+            if key in PR2_KERNELS}
     x1 = psr.x1
     fe_seq = [fe0, *map(float, fes), psr.FE]
     rec = {"phase": "grid_main_path", "frames": k, "n_points": n,
@@ -679,12 +732,13 @@ def phase_grid_main_path(counters):
            "fe_increase_events": psr.fe_increase_events,
            "uncovered": psr.last_reg_stats["uncovered"].cpu().tolist(),
            "last_reg_evals": psr.last_reg_evals.cpu().tolist(),
-           "launches": flat}
+           "launches": flat,
+           # the eta = 0 kernels unchanged: the FE sequence of earlier runs
+           "FE_sequence_equals_earlier_runs": fe_seq == PR2_GRID_FE}
     emit(rec)
     if not all(v > 0 for v in flat.values()):
         fail("grid_main_path", f"a kernel of the path never launched: {flat}")
-    monotone = all(b <= a + 1e-4 * abs(a) + 1e-6 for a, b in zip(fe_seq, fe_seq[1:]))
-    if not (all(map(math.isfinite, fe_seq)) and monotone
+    if not (all(map(math.isfinite, fe_seq)) and monotone(fe_seq)
             and psr.fe_increase_events == 0):
         fail("grid_main_path", "free energy not finite or not monotone")
     if not fe_seq[-1] < fe_seq[0]:
@@ -745,14 +799,14 @@ def phase_api_grid(counters, icp_two_set, icp_atlas):
         t0 = time.perf_counter()
         psr, _ = call(lambda p, after_gmm: fes.append(p.FE))
         torch.cuda.synchronize()
-        flat = {key: v for c in counters.values() for key, v in c.items()}
+        flat = {key: v for c in counters.values() for key, v in c.items()
+                if key in PR2_KERNELS}
         emit({"phase": "api_grid", "entry": name, "n_points": n,
               "frames": psr.K, "support": psr.support_scheme,
               "grid_M": int(psr.q0.shape[1]),
               "seconds": time.perf_counter() - t0, "FE_sequence": fes,
               "fe_increase_events": psr.fe_increase_events, "launches": flat})
-        monotone = all(b <= a + 1e-4 * abs(a) + 1e-6 for a, b in zip(fes, fes[1:]))
-        if not (monotone and psr.fe_increase_events == 0 and math.isfinite(psr.FE)):
+        if not (monotone(fes) and psr.fe_increase_events == 0 and math.isfinite(psr.FE)):
             fail("api_grid", f"{name}: free energy not monotone")
         if psr.support_scheme != "grid" or not all(
                 flat[key] > 0 for key in ("rhs_ext_fwd", "rhs_ext_bwd_dx",
@@ -760,30 +814,34 @@ def phase_api_grid(counters, icp_two_set, icp_atlas):
             fail("api_grid", f"{name} did not take the grid kernel route: {flat}")
 
 
-def phase_profile(psr, counters):
+def phase_profile(psr, counters, phase="profile", evals_of=None, run_kw=GRID_RUN,
+                  host_ops=False):
     """A torch.profiler trace (CPU and CUDA activities) of one outer
-    iteration of the grid main path.  One untraced iteration runs first: its
-    wall time shows what the tracing costs the host."""
+    iteration of a grid main path.  One untraced iteration runs first: its
+    wall time shows what the tracing costs the host.  ``evals_of(counters)``
+    gives the loss+grad evaluations of the traced iteration (by default nt
+    dq/dp launches each); ``run_kw`` are the outer iteration's arguments;
+    ``host_ops`` adds the host operators by their own CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    psr.run(1, **GRID_RUN)
+    psr.run(1, **run_kw)
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3
     reset(*counters.values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        psr.run(1, **GRID_RUN)
+        psr.run(1, **run_kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     kernels = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
                       if e.device_type == DeviceType.CUDA), key=lambda t: t[0])
     if not kernels:
-        fail("profile", "the trace holds no device activity")
+        fail(phase, "the trace holds no device activity")
     host = [e for e in events if e.device_type == DeviceType.CPU]
     lo = min(e.time_range.start for e in host)
     hi = max(max(e.time_range.end for e in host), kernels[-1][1])
@@ -805,8 +863,9 @@ def phase_profile(psr, counters):
     window_us = hi - lo
     gaps.sort()
     # one loss+grad evaluation is nt dq/dp launches (Euler)
-    evals = counters["rhs_ext"]["rhs_ext_bwd_dqdp"] / psr.lcfg.nt
-    rec = {"phase": "profile", "window_ms": window_us / 1e3, "wall_ms": wall_ms,
+    evals = (counters["rhs_ext"]["rhs_ext_bwd_dqdp"] / psr.lcfg.nt if evals_of is None
+             else evals_of(counters))
+    rec = {"phase": phase, "window_ms": window_us / 1e3, "wall_ms": wall_ms,
            "untraced_wall_ms": untraced_ms,
            "device_busy_ms": busy / 1e3, "device_busy_share": busy / window_us,
            "device_idle_share": 1.0 - busy / window_us,
@@ -818,9 +877,583 @@ def phase_profile(psr, counters):
            "host_gap_p90_us": gaps[int(0.9 * len(gaps))] if gaps else 0.0,
            "top_cuda_ops": [{"name": name[:90], "ms": tot / 1e3, "count": cnt}
                             for name, (tot, cnt) in top]}
+    if host_ops:
+        # where the host's time goes: operators by their own CPU time
+        by_op = {}
+        for e in host:
+            tot, cnt = by_op.get(e.name, (0.0, 0))
+            by_op[e.name] = (tot + e.self_cpu_time_total, cnt + 1)
+        rec["top_host_ops"] = [{"name": name[:90], "self_ms": tot / 1e3, "count": cnt}
+                               for name, (tot, cnt) in sorted(by_op.items(),
+                                                              key=lambda kv: -kv[1][0])[:12]]
     emit(rec)
     if not 0.0 < rec["device_busy_share"] <= 1.0:
-        fail("profile", "device-busy share out of range")
+        fail(phase, "device-busy share out of range")
+
+
+# ---------------------------------------------------------------------------
+# the gradcomponent (eta != 0) slice
+# ---------------------------------------------------------------------------
+
+def ksum_inputs(k, nx, ny, d, ncols, seed, shared=False, self_case=False):
+    """Rows on spiral frames, columns on their grid support or (self_case)
+    the rows themselves; a ragged column mask; a random payload table."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.as_tensor(np.stack(grid_frames(k, nx, dim=d)))
+    if self_case:
+        y = x
+    else:
+        y = torch.as_tensor(np.stack(grid_frames(1 if shared else k, ny, dim=d)))
+        if shared:
+            y = y[0]
+    my = (torch.rand(y.shape[:-1], generator=g) > 0.1).float()
+    t = torch.randn((*y.shape[:-2], ncols, y.shape[-2]), generator=g)
+    return [a.cuda() for a in (x, y, my, t)]
+
+
+def phase_check_eta(rs, re, ks):
+    """ksum and the ETA forward instances against their plain versions in
+    float64 on the same float32 inputs; the ETA instances at eta = 0 against
+    the eta = 0 instances, bit for bit."""
+    import torch
+
+    t0 = time.perf_counter()
+    worst = {name: [0.0, 0.0] for name in ("ksum", "rhs_self_fwd_eta", "rhs_ext_fwd_eta")}
+
+    def note(name, rel, ab):
+        worst[name][0] = max(worst[name][0], rel)
+        worst[name][1] = max(worst[name][1], ab)
+
+    cases = [(2, c, {}) for c in (3, 6, 9, 20, 121)] + [(3, 333, {}), (2, 20, {"shared": True}),
+                                                         (2, 121, {"self_case": True})]
+    for d, ncols, kw in cases:
+        # 3 frames of 4,001 rows against 6,007 columns, and a split y axis:
+        # 3 frames of 380 rows against 40,000 columns
+        for nx, ny in ((4001, 6007), (380, 40000)):
+            if kw.get("self_case"):
+                ny = nx
+            x, y, my, t = ksum_inputs(3, nx, ny, d, ncols, seed=ncols + nx, **kw)
+            got = ks.ksum(x, y, t, my, GRID_SIGMA)
+            torch.cuda.synchronize()
+            ref = ks.ksum_reference(x.double(), y.double(), t.double(), my.double(),
+                                    GRID_SIGMA)
+            rel, ab = rel_err(got, ref), abs_err(got, ref)
+            ok = rel <= TOL_FWD
+            emit({"phase": "check_ksum", "frames": 3, "Nx": nx, "Ny": ny, "d": d,
+                  "cols": ncols, "y_cols_per_split": ks.splitting(3, nx, ny, ncols), **kw,
+                  "rel_err": rel, "tol": TOL_FWD, "ok": ok})
+            if not ok:
+                fail("check_ksum", f"ksum disagrees with its plain version at d={d} "
+                                   f"cols={ncols} Nx={nx} Ny={ny} {kw}")
+            note("ksum", rel, ab)
+    identical = True
+    for n, masked in ((16381, True), (65536, False)):
+        for d in (2, 3):
+            for wl in (True, False):
+                q, p, mask, *_ = make_inputs(n, d, masked, seed=n + d)
+                v, w, dc = rs.rhs_self_fwd(q, p, mask, SIGMA, wl, DENSE_ETA)
+                x, mx, qs, ps, mq, *_ = ext_inputs(3, n, d, masked, "grid", seed=n + d)
+                vx, dcx = re.rhs_ext_fwd(x, mx, qs, ps, mq, GRID_SIGMA, wl, GRID_ETA)
+                torch.cuda.synchronize()
+                rv, rw, rdc = rs.rhs_self_fwd_reference(q.double(), p.double(),
+                                                        mask.double(), SIGMA, wl, DENSE_ETA)
+                rvx, rdcx = re.rhs_ext_fwd_reference(
+                    *(a.double() for a in (x, mx, qs, ps, mq)), GRID_SIGMA, wl, GRID_ETA)
+                torch.cuda.synchronize()
+                self_rel = max(rel_err(v, rv), rel_err(w, rw))
+                ext_rel = rel_err(vx, rvx)
+                dc_rel = max(float((a.double().sum(-1) - r.sum(-1)).abs().max()
+                                   / r.abs().sum(-1).max().clamp_min(1e-300))
+                             for a, r in ((dc, rdc), (dcx, rdcx)))
+                ok = max(self_rel, ext_rel, dc_rel) <= TOL_FWD
+                # the ETA instances at eta = 0 against the eta = 0 instances
+                same = all(torch.equal(a, b) for a, b in zip(
+                    rs.launch_fwd(q, p, mask, SIGMA, wl, 0.0, False)
+                    + re.launch_fwd(x, mx, qs, ps, mq, GRID_SIGMA, wl, 0.0, False),
+                    rs.launch_fwd(q, p, mask, SIGMA, wl, 0.0, True)
+                    + re.launch_fwd(x, mx, qs, ps, mq, GRID_SIGMA, wl, 0.0, True)))
+                identical = identical and same
+                emit({"phase": "check_eta_fwd", "N": n, "d": d, "withlogdet": wl,
+                      "masked": masked, "self_rel_err": self_rel, "ext_rel_err": ext_rel,
+                      "dcost_rel_err": dc_rel, "tol": TOL_FWD,
+                      "eta_instance_at_0_bit_identical": same, "ok": ok})
+                if not ok:
+                    fail("check_eta_fwd", f"an ETA forward kernel disagrees with its plain "
+                                          f"version at N={n} d={d} withlogdet={wl}")
+                note("rhs_self_fwd_eta", max(self_rel, dc_rel),
+                     max(abs_err(v, rv), abs_err(w, rw)))
+                note("rhs_ext_fwd_eta", max(ext_rel, dc_rel), abs_err(vx, rvx))
+    emit({"phase": "check_eta_done", "seconds": time.perf_counter() - t0,
+          "eta_instances_at_0_bit_identical": identical})
+    return worst
+
+
+def ksum_bound(pairs, d, ncols, nbytes, self_pairs=False):
+    """The bound of a kernel-sum: per pair 3d - 1 + 2 ncols FP32 operations
+    and one exponential; a self sum (x = y) takes each unordered pair once,
+    its distance and exponential shared by both rows."""
+    from difficp_torch.ops import ksum as ks
+
+    if self_pairs:
+        return bound(pairs, 3 * d - 1 + 4 * ncols, pairs, nbytes)
+    return bound(pairs, ks.ops_per_pair(d, ncols), pairs, nbytes)
+
+
+def phase_timing_eta(rs, re, ks):
+    """Each eta kernel at the shapes the two eta paths give it: first held
+    against its plain version in float64 on the same inputs, then timed with
+    CUDA events (median of 15) beside its plain version and its bound.
+    Grid eta path: 10 frames of 65,536 points on their grid support (M), d =
+    2, sigma = 0.05, eta = 1/500.  Dense eta path: one frame of DENSE_ETA_N
+    spiral points, sigma = 0.1, eta = 1/200."""
+    import numpy as np
+    import torch
+    from difficp_torch.utils.point_sets import grid_support
+
+    t0 = time.perf_counter()
+    k, n, d, nd = 10, 65536, 2, DENSE_ETA_N
+    x = torch.as_tensor(np.stack(grid_frames(k, n))).cuda()
+    qg = torch.as_tensor(grid_support(x.reshape(-1, d).cpu().numpy(), GRID_SIGMA))
+    m = qg.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = qg.cuda() + 0.1 * GRID_SIGMA * torch.randn((k, m, d), generator=g, device="cuda")
+    p = 0.05 * torch.randn(q.shape, generator=g, device="cuda")
+    mq = torch.ones((k, m), device="cuda")
+    ones_x = torch.ones((k, n), device="cuda")
+    qd, pd_, md, *_ = make_inputs(nd, d, False, seed=5)
+
+    def table(ncols, cols):
+        return torch.randn((cols.shape[0], ncols, cols.shape[1]), generator=g,
+                           device="cuda")
+
+    # (name, x, y, table, sigma, self) of every kernel-sum on the two paths
+    calls = [
+        ("grid ext forward", x, q, table(9, q), GRID_SIGMA, False),
+        ("grid self backward", q, q, table(121, q), GRID_SIGMA, True),
+        ("grid ext dx", x, q, table(20, q), GRID_SIGMA, False),
+        ("grid ext dq/dp", q, x, table(20, x), GRID_SIGMA, False),
+        ("dense self backward", qd, qd, table(121, qd), SIGMA, True),
+        ("dense Hamiltonian", qd, qd, table(6, qd), SIGMA, True),
+    ]
+    worst = {"ksum": [0.0, 0.0], "rhs_self_fwd_eta": [0.0, 0.0],
+             "rhs_ext_fwd_eta": [0.0, 0.0]}
+    shapes = []
+    for name, xs, ys, tab, sig, self_case in calls:
+        got = ks.ksum(xs, ys, tab, None, sig)
+        torch.cuda.synchronize()
+        ref = ks.ksum_reference(xs.double(), ys.double(), tab.double(), None, sig)
+        rel, ab = rel_err(got, ref), abs_err(got, ref)
+        del got, ref
+        torch.cuda.empty_cache()
+        ok = rel <= TOL_FWD
+        nb, nx, ny, ncols = xs.shape[0], xs.shape[1], ys.shape[1], tab.shape[1]
+        emit({"phase": "check_main_shape", "kernel": "ksum", "call": name, "frames": nb,
+              "Nx": nx, "Ny": ny, "cols": ncols, "rel_err": rel, "abs_err": ab,
+              "tol": TOL_FWD, "ok": ok})
+        if not ok:
+            fail("check_main_shape", f"ksum disagrees with its plain version at {name}")
+        worst["ksum"] = [max(worst["ksum"][0], rel), max(worst["ksum"][1], ab)]
+        fn = lambda: ks.ksum(xs, ys, tab, None, sig)  # noqa: E731
+        plain = lambda: ks.ksum_reference(xs, ys, tab, None, sig)  # noqa: E731
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 15)
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(plain, 3)
+        nbytes = 4.0 * nb * (nx * d + ny * d + ncols * ny + ncols * nx)
+        pairs = nb * (nx * (nx - 1) / 2 if self_case else nx * ny)
+        bd = ksum_bound(pairs, d, ncols, nbytes, self_pairs=self_case)
+        rec = dict(call=name, frames=nb, Nx=nx, Ny=ny, cols=ncols, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, **bd,
+                   share_of_bound=bd["bound_ms"] / ms,
+                   y_cols_per_split=ks.splitting(nb, nx, ny, ncols),
+                   gpair_per_s=nb * nx * ny / (ms * 1e-3) / 1e9)
+        shapes.append(rec)
+        emit({"phase": "timing", "kernel": "ksum", **rec})
+    torch.cuda.empty_cache()
+
+    out = {}
+    # the ETA self forward: the grid path's support (logdet off, the ext RHS's
+    # self part), the dense path's self forward (logdet on) and its
+    # Hamiltonian gradient (logdet off)
+    for label, (qq, pp, mm, sig, eta, wl) in (
+            ("grid support", (q, p, mq, GRID_SIGMA, GRID_ETA, False)),
+            ("dense self forward", (qd, pd_, md, SIGMA, DENSE_ETA, True)),
+            ("dense Hamiltonian gradient", (qd, pd_, md, SIGMA, DENSE_ETA, False))):
+        got = rs.rhs_self_fwd(qq, pp, mm, sig, wl, eta)
+        ref = rs.rhs_self_fwd_reference(qq.double(), pp.double(), mm.double(), sig, wl, eta)
+        torch.cuda.synchronize()
+        rel = max(rel_err(a, r) for a, r in zip(got[:2], ref[:2]))
+        ab = max(abs_err(a, r) for a, r in zip(got[:2], ref[:2]))
+        emit({"phase": "check_main_shape", "kernel": "rhs_self_fwd_eta", "call": label,
+              "frames": qq.shape[0], "M": qq.shape[1], "rel_err": rel, "abs_err": ab,
+              "tol": TOL_FWD, "ok": rel <= TOL_FWD})
+        if rel > TOL_FWD:
+            fail("check_main_shape", f"rhs_self_fwd_eta disagrees at the {label} shape")
+        worst["rhs_self_fwd_eta"] = [max(worst["rhs_self_fwd_eta"][0], rel),
+                                     max(worst["rhs_self_fwd_eta"][1], ab)]
+        fn = lambda: rs.rhs_self_fwd(qq, pp, mm, sig, wl, eta)  # noqa: E731
+        plain = lambda: rs.rhs_self_fwd_reference(qq, pp, mm, sig, wl, eta)  # noqa: E731
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 15)
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(plain, 3)
+        nb, mpts = qq.shape[0], qq.shape[1]
+        upairs = float((mm.sum(-1) * (mm.sum(-1) - 1) / 2).sum())
+        nbytes = 4.0 * nb * mpts * ((2 * d + 1) + (2 * d + 1))
+        bd = bound(upairs, rs.fwd_eta_ops_per_unordered_pair(d, wl), upairs, nbytes)
+        rec = dict(call=label, frames=nb, M=mpts, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   **bd, share_of_bound=bd["bound_ms"] / ms)
+        out.setdefault("rhs_self_fwd_eta", []).append(rec)
+        emit({"phase": "timing", "kernel": "rhs_self_fwd_eta", **rec})
+    # the ETA ext forward: v_field of the grid eta path's set-up (the grid
+    # support's 10 x M points against the 65,536 data points of each frame,
+    # logdet off, an all-ones data mask)
+    qsup = qg.cuda().expand(k, m, d).contiguous()
+    ones_q = torch.ones((k, m), device="cuda")
+    # the momenta of the dense support at the data points
+    pv = 0.01 * torch.randn(x.shape, generator=g, device="cuda")
+    got = re.rhs_ext_fwd(qsup, ones_q, x, pv, ones_x, GRID_SIGMA, False, GRID_ETA)
+    ref = re.rhs_ext_fwd_reference(qsup.double(), ones_q.double(), x.double(), pv.double(),
+                                   ones_x.double(), GRID_SIGMA, False, GRID_ETA)
+    torch.cuda.synchronize()
+    rel, ab = rel_err(got[0], ref[0]), abs_err(got[0], ref[0])
+    emit({"phase": "check_main_shape", "kernel": "rhs_ext_fwd_eta", "call": "v_field",
+          "frames": k, "N": m, "M": n, "rel_err": rel, "abs_err": ab, "tol": TOL_FWD,
+          "ok": rel <= TOL_FWD})
+    if rel > TOL_FWD:
+        fail("check_main_shape", "rhs_ext_fwd_eta disagrees at the v_field shape")
+    worst["rhs_ext_fwd_eta"] = [max(worst["rhs_ext_fwd_eta"][0], rel),
+                                max(worst["rhs_ext_fwd_eta"][1], ab)]
+    del got, ref
+    fn = lambda: re.rhs_ext_fwd(qsup, ones_q, x, pv, ones_x, GRID_SIGMA, False, GRID_ETA)  # noqa: E731
+    plain = lambda: re.rhs_ext_fwd_reference(qsup, ones_q, x, pv, ones_x, GRID_SIGMA,  # noqa: E731
+                                             False, GRID_ETA)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ms = cuda_ms(fn, 15)
+    plain()
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(plain, 3)
+    pairs = float(k * m * n)
+    nbytes = 4.0 * k * (m * (d + 1) + n * (2 * d + 1) + m * d)
+    bd = bound(pairs, re.fwd_eta_ops_per_pair(d, False), pairs, nbytes)
+    out["rhs_ext_fwd_eta"] = [dict(call="v_field", frames=k, N=m, M=n, ms=ms,
+                                   plain_ms=plain_ms, library_ms=None, **bd,
+                                   share_of_bound=bd["bound_ms"] / ms)]
+    emit({"phase": "timing", "kernel": "rhs_ext_fwd_eta", **out["rhs_ext_fwd_eta"][0]})
+    out["ksum"] = shapes
+    torch.cuda.empty_cache()
+    emit({"phase": "timing_eta_done", "seconds": time.perf_counter() - t0})
+    return out, worst
+
+
+ETA_KERNELS = ("rhs_self_fwd_eta", "rhs_ext_fwd_eta", "ksum")
+
+
+def flat_counts(counters):
+    return {key: v for c in counters.values() for key, v in c.items()}
+
+
+def phase_grid_eta_path(counters):
+    """The grid main path with the gradcomponent model (version "logdet",
+    eta = 1/500): DiffPSR set-up (start momenta by v2p on the dense support,
+    then the projection onto the grid), run(2) and one stepwise Reg_opt."""
+    import torch
+
+    k, n, nt = 10, 65536, 10
+    reset(*counters.values())
+    t0 = time.perf_counter()
+    psr = grid_psr(k, n, version="logdet")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    setup_counts = flat_counts(counters)
+    fe0 = psr.FE
+    t1 = time.perf_counter()
+    fes = psr.run(2, **GRID_RUN)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t2
+    flat = flat_counts(counters)
+    fe_seq = [fe0, *map(float, fes), psr.FE]
+    # loss+grad evaluations: one any-eta self forward per step of each shoot;
+    # the coverage pass adds one shoot without a gradient
+    evals = (flat["rhs_self_fwd_eta"] - nt) / nt
+    per_eval = {"rhs_self_fwd_eta": nt, "ksum": 4 * nt}
+    expected_ksum = 4 * nt * evals + nt + setup_counts["ksum"]
+    rec = {"phase": "grid_eta_path", "frames": k, "n_points": n,
+           "grid_M": int(psr.q0.shape[1]), "sigma_lddmm": GRID_SIGMA, "eta": psr.lcfg.eta,
+           "setup_seconds": setup, "run_seconds": run_s,
+           "seconds_per_outer_iteration": run_s / 2, "reg_opt_seconds": reg_s,
+           "seconds": time.perf_counter() - t0, "FE_sequence": fe_seq,
+           "fe_increase_events": psr.fe_increase_events,
+           "uncovered": psr.last_reg_stats["uncovered"].cpu().tolist(),
+           "setup_launches": setup_counts, "launches": flat, "loss_grad_evals": evals,
+           "expected_per_loss_grad": per_eval,
+           "ksum_launches_as_expected": flat["ksum"] == expected_ksum}
+    emit(rec)
+    if not all(flat[key] > 0 for key in ETA_KERNELS):
+        fail("grid_eta_path", f"a kernel of the path never launched: {flat}")
+    # the first registration after the start momenta is not compared with the
+    # FE recorded before them, which omits their energy (as the oracle does)
+    if not (all(map(math.isfinite, fe_seq)) and monotone(fe_seq, skip=(1,))
+            and psr.fe_increase_events == 0):
+        fail("grid_eta_path", "free energy not finite or not monotone")
+    if not fe_seq[-1] < fe_seq[0]:
+        fail("grid_eta_path", "free energy did not decrease over the run")
+    if tuple(psr.x1.shape) != (k, n, 2) or not bool(torch.isfinite(psr.x1).all()):
+        fail("grid_eta_path", "warped points have the wrong shape or are not finite")
+    return psr, flat
+
+
+def phase_dense_eta_start(rs, pp, ks):
+    """The dense eta path's start at 8,192, 16,384 and 32,768 spiral points:
+    v2p's momenta for a zero field (the CG ridge solve above the pair
+    limit), one shoot from them on the kernel route (largest |q1|, |p1| and
+    the cost), and the self forward there, the generated one (the JAX
+    package's route from 32,768 points on) and the ETA kernel, against the
+    float64 plain version.  Fails if the path's own size does not stay
+    finite."""
+    import numpy as np
+    import torch
+    from difficp_torch.examples.run_large import spiral_cloud
+    from difficp_torch.models import lddmm
+
+    t0 = time.perf_counter()
+    cfg = lddmm.make_config(sigma=SIGMA, lambd=200.0, version="logdet", nt=10,
+                            scheme="Euler")
+    for n in (8192, 16384, 32768):
+        q = torch.as_tensor(spiral_cloud(n, np.random.default_rng(0)))[None].cuda()
+        m = torch.ones(q.shape[:-1], device="cuda")
+        a0 = lddmm.v2p(cfg, q, torch.zeros_like(q), rcond=1e-3, qmask=m)
+        with torch.no_grad():
+            final, _ = lddmm.shoot(cfg, q, a0, None, m)
+        ref = rs.rhs_self_fwd_reference(q.double(), a0.double(), m.double(), SIGMA, False,
+                                        cfg.eta)
+        gen_v, gen_gq, _ = pp.rhs_self_fwd_poly(q - ks.mm_center(q, m), a0, m, SIGMA,
+                                                cfg.eta, False)
+        dv, dw, _ = rs.rhs_self_fwd(q, a0, m, SIGMA, False, cfg.eta)
+        torch.cuda.synchronize()
+        q1, p1 = float(final.q.abs().max()), float(final.p.abs().max())
+        stable = math.isfinite(q1) and q1 < 10.0
+        emit({"phase": "dense_eta_start", "N": n, "max_abs_a0": float(a0.abs().max()),
+              "max_abs_q1": q1, "max_abs_p1": p1, "cost": float(final.cost[0]),
+              "stable": stable, "max_abs_v0": float(ref[0].abs().max()),
+              "generated_fwd_rel_err": {"vq": rel_err(gen_v, ref[0]),
+                                        "-Gq": rel_err(-gen_gq, ref[1])},
+              "direct_fwd_rel_err": {"vq": rel_err(dv, ref[0]), "-Gq": rel_err(dw, ref[1])}})
+        if n == DENSE_ETA_N and not stable:
+            fail("dense_eta_start", f"the start shoot at N={n} does not stay bounded")
+        del q, m, a0, final, ref, gen_v, gen_gq, dv, dw
+        torch.cuda.empty_cache()
+    emit({"phase": "dense_eta_start_done", "seconds": time.perf_counter() - t0})
+
+
+def phase_dense_eta_path(counters, run_large):
+    """examples/run_large.py's configuration with version "logdet" (eta =
+    1/200), driven as run_large.main drives DiffPSR: N = DENSE_ETA_N (cut
+    from the JAX example's 131,072: from 16,384 points on the start shoot
+    diverges), C = 64, sigma = 0.1, nt = 10 Euler, dense support, 2 outer
+    iterations of GMM_opt(10) + 2 x Reg_opt(nmax=1, carry_memory,
+    carry_value), line-search budget 25."""
+    import numpy as np
+    import torch
+    from difficp_torch.models import gmm, lddmm
+    from difficp_torch.models.psr import DiffPSR
+
+    n_points, n_iter, ls_steps, inner = DENSE_ETA_N, 2, 25, 2
+    reset(*counters.values())
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    x_a = run_large.spiral_cloud(n_points, rng)
+    x_b = run_large.warp(run_large.spiral_cloud(n_points, rng), 2)
+    mu0 = x_b[rng.integers(0, n_points, 64)]
+    state, _ = gmm.create(mu0, sigma=0.05, device="cuda")
+    gcfg = gmm.GMMConfig(optimize_mu=True, optimize_sigma=True, optimize_w=True,
+                         optimize_eta0=False)
+    lcfg = lddmm.make_config(sigma=SIGMA, lambd=200.0, version="logdet", nt=10,
+                             scheme="Euler")
+    psr = DiffPSR(x_a, state, gcfg, lcfg, device="cuda")
+    psr.printstuff = False
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    setup_counts = flat_counts(counters)
+    fes, iters = [psr.FE], []
+    for it in range(n_iter):
+        t1 = time.perf_counter()
+        psr.GMM_opt(max_iterations=10, tol=1e-3)
+        fes.append(psr.FE)
+        for _ in range(2):
+            psr.Reg_opt(tol=1e-3, nmax=1, inner=inner, ls_steps=ls_steps,
+                        carry_memory=True, carry_value=True)
+            fes.append(psr.FE)
+        torch.cuda.synchronize()
+        iters.append(time.perf_counter() - t1)
+    flat = flat_counts(counters)
+    # each loss+grad: nt self forwards and the Hamiltonian's gradient on the
+    # any-eta kernel; nt generated backwards and the Hamiltonian's value on ksum
+    per_eval = {"rhs_self_fwd_eta": lcfg.nt + 1, "ksum": lcfg.nt + 1}
+    evals = flat["rhs_self_fwd_eta"] / per_eval["rhs_self_fwd_eta"]
+    rec = {"phase": "dense_eta_path", "n_points": n_points, "eta": lcfg.eta,
+           "setup_seconds": setup, "seconds_per_outer_iteration": iters,
+           "seconds": time.perf_counter() - t0, "FE_sequence": fes,
+           "fe_increase_events": psr.fe_increase_events, "setup_launches": setup_counts,
+           "launches": flat, "loss_grad_evals": evals,
+           "expected_per_loss_grad": per_eval,
+           "ksum_launches_as_expected":
+               flat["ksum"] == per_eval["ksum"] * evals + setup_counts["ksum"]}
+    emit(rec)
+    if not all(flat[key] > 0 for key in ("ksum", "rhs_self_fwd_eta", "rhs_self_fwd")):
+        fail("dense_eta_path", f"a kernel of the path never launched: {flat}")
+    # [start, GMM_opt, Reg_opt, Reg_opt, ...]: the first Reg_opt is not
+    # compared with the FE recorded before the start momenta's energy
+    if not (all(map(math.isfinite, fes)) and monotone(fes, skip=(2,))
+            and psr.fe_increase_events == 0 and fes[-1] < fes[0]):
+        fail("dense_eta_path", "free energy not finite, not monotone or not lower")
+    x1 = psr.get_warped_data_points()
+    if x1.shape != (n_points, 2) or not bool(np.isfinite(x1).all()):
+        fail("dense_eta_path", "warped points have the wrong shape or are not finite")
+    return flat
+
+
+def phase_eta_route_agreement(backend, counters):
+    """The grid eta workload at 3 x 8,000 points through the kernel route
+    (N < 32,768 a frame: the ETA ext forward, not the generated one) and the
+    dense route, run(1) and one stepwise Reg_opt: the same free energy
+    within TOL_ROUTE_FE."""
+    import torch
+
+    t0 = time.perf_counter()
+    fes, launches = {}, {}
+    for mode in ("kernel", "dense"):
+        backend.set_backend(mode)
+        reset(*counters.values())
+        try:
+            psr = grid_psr(3, 8000, version="logdet")
+            psr.run(1, **GRID_RUN)
+            psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
+            torch.cuda.synchronize()
+        finally:
+            backend.set_backend(None)
+        fes[mode] = psr.FE
+        launches[mode] = flat_counts(counters)
+    rel = abs(fes["kernel"] - fes["dense"]) / abs(fes["dense"])
+    emit({"phase": "eta_route_agreement", "frames": 3, "n_points": 8000,
+          "grid_M": int(psr.q0.shape[1]), "FE_kernel": fes["kernel"],
+          "FE_dense": fes["dense"], "rel_diff": rel, "tol": TOL_ROUTE_FE,
+          "launches_kernel_route": launches["kernel"],
+          "seconds": time.perf_counter() - t0})
+    if rel > TOL_ROUTE_FE:
+        fail("eta_route_agreement", "kernel and dense routes disagree")
+    if not all(launches["kernel"][key] > 0 for key in ETA_KERNELS):
+        fail("eta_route_agreement", f"the kernel route skipped a kernel: {launches['kernel']}")
+
+
+def phase_poly_precision(rs, re, tr):
+    """The ext RHS at the grid path's geometry (3 frames x 8,000 spiral
+    points, their grid support, sigma = 0.05, eta = 1/500), float32 on the
+    kernel route against float64 dense autograd on the card: the largest
+    error of each output and gradient relative to its largest magnitude,
+    routed (the ETA forward kernels below 32,768 points, the generated
+    backward) and with the generated ext forward forced."""
+    import numpy as np
+    import torch
+    from difficp_torch.utils.point_sets import grid_support
+
+    k, n, d = 3, 8000, 2
+    x = torch.as_tensor(np.stack(grid_frames(k, n))).cuda()
+    q = torch.as_tensor(grid_support(x.reshape(-1, d).cpu().numpy(), GRID_SIGMA)).cuda()
+    q = q.expand(k, *q.shape).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    p = 0.05 * torch.randn(q.shape, generator=g, device="cuda")
+    mq, mx = torch.ones(q.shape[:-1], device="cuda"), torch.ones(x.shape[:-1], device="cuda")
+    cots = [torch.randn(q.shape, generator=g, device="cuda") for _ in range(2)] + [
+        torch.randn((k,), generator=g, device="cuda"),
+        torch.randn(x.shape, generator=g, device="cuda")]
+    t64 = [a.double().requires_grad_(True) for a in (q, p, x)]
+    out = tr.lddmm_rhs_ext(*t64, GRID_SIGMA, GRID_ETA, True, mq.double(), mx.double())
+    ref = [o.detach() for o in out] + list(torch.autograd.grad(
+        sum((o * c.double()).sum() for o, c in zip(out, cots)), t64))
+    names = ["vq", "-Gq", "dcost", "vx", "dq", "dp", "dx"]
+    labels = ("routed", "generated_ext_forward")
+    rec = {"phase": "poly_precision", "frames": k, "N": n, "M": q.shape[1],
+           "sigma": GRID_SIGMA, "eta": GRID_ETA}
+    keep = rs._POLY_FWD_MIN_M
+    try:
+        for label, gate in zip(labels, (keep, 1)):
+            rs._POLY_FWD_MIN_M = gate
+            t = [a.clone().requires_grad_(True) for a in (q, p, x)]
+            o = re.RHSExt.apply(*t, mq, mx, GRID_SIGMA, True, GRID_ETA)
+            grads = torch.autograd.grad(sum((a * c).sum() for a, c in zip(o, cots)), t)
+            got = [a.detach() for a in o] + list(grads)
+            rec[label] = {nm: rel_err(a, r) for nm, a, r in zip(names, got, ref)}
+    finally:
+        rs._POLY_FWD_MIN_M = keep
+    worst = max(max(rec[label].values()) for label in labels)
+    rec["max_rel_err"] = worst
+    rec["above_log_threshold"] = worst > POLY_ERR_LOG
+    emit(rec)
+    if not math.isfinite(worst):
+        fail("poly_precision", "non-finite error")
+    return rec
+
+
+def phase_api_eta(counters, icp_two_set, icp_atlas):
+    """icp_two_set and icp_atlas (two frames) with gradcomponent_LDDMM=True
+    (default grid support) on the card, at 16,384 points a frame: the
+    smallest power of two at which the grid's M (M + N) pairs leave the
+    dense route."""
+    import numpy as np
+    import torch
+    from difficp_torch.examples.run_large import spiral_cloud, warp
+
+    n = 16384
+    rng = np.random.default_rng(2)
+    x_a = spiral_cloud(n, rng)
+    x_b = warp(spiral_cloud(n, rng), 2)
+    reg = {"type": "diffeomorphic", "sigma_LDDMM": GRID_SIGMA, "lambda_LDDMM": 5e2}
+    num = {"gradcomponent_LDDMM": True}
+    for name, call in (
+        ("icp_two_set", lambda cb: icp_two_set(
+            x_a, x_b, GMM_parameters={"sigma": 0.05, "optimize_sigma": True},
+            registration_parameters=reg, numerical_options=num,
+            optim_options={"max_iterations": 2}, printstuff=False, callback_function=cb,
+            device="cuda")),
+        ("icp_atlas", lambda cb: icp_atlas(
+            grid_frames(2, n), GMM_parameters={"init_components": 20},
+            registration_parameters=reg, numerical_options=num,
+            optim_options={"max_iterations": 2}, printstuff=False, callback_function=cb,
+            device="cuda")),
+    ):
+        fes = []
+        reset(*counters.values())
+        t0 = time.perf_counter()
+        psr, _ = call(lambda p, after_gmm: fes.append(p.FE))
+        torch.cuda.synchronize()
+        flat = flat_counts(counters)
+        emit({"phase": "api_eta", "entry": name, "n_points": n, "frames": psr.K,
+              "support": psr.support_scheme, "grid_M": int(psr.q0.shape[1]),
+              "eta": psr.lcfg.eta, "seconds": time.perf_counter() - t0,
+              "FE_sequence": fes, "fe_increase_events": psr.fe_increase_events,
+              "launches": flat})
+        # [GMM_opt, Reg_opt, ...]: the first Reg_opt follows the start momenta
+        if not (monotone(fes, skip=(1,)) and psr.fe_increase_events == 0
+                and math.isfinite(psr.FE)):
+            fail("api_eta", f"{name}: free energy not monotone")
+        if psr.lcfg.eta == 0.0 or not all(flat[key] > 0 for key in ETA_KERNELS):
+            fail("api_eta", f"{name} did not take the eta kernel route: {flat}")
 
 
 def main():
@@ -838,6 +1471,9 @@ def main():
     from difficp_torch.examples import run_large
     from difficp_torch.ops import _build, backend
     from difficp_torch.ops import kmin2 as k2
+    from difficp_torch.ops import ksum as ks
+    from difficp_torch.ops import pair_poly as pp
+    from difficp_torch.ops import reductions as tr
     from difficp_torch.ops import rhs_ext as re
     from difficp_torch.ops import rhs_self as rs
 
@@ -856,7 +1492,8 @@ def main():
     emit({"phase": "build", "seconds": _build.build_seconds,
           "one_call_seconds": one_call_build_seconds(_build), "ptxas": regs})
 
-    counters = {"rhs_self": rs.launches, "rhs_ext": re.launches, "kmin2": k2.launches}
+    counters = {"rhs_self": rs.launches, "rhs_ext": re.launches, "kmin2": k2.launches,
+                "ksum": ks.launches}
     t0 = time.perf_counter()
     worst = phase_check(rs)
     emit({"phase": "check_done", "seconds": time.perf_counter() - t0})
@@ -880,6 +1517,30 @@ def main():
     t0 = time.perf_counter()
     phase_profile(psr, counters)
     emit({"phase": "profile_done", "seconds": time.perf_counter() - t0})
+    del psr
+
+    # the gradcomponent (eta != 0) slice
+    worst.update(phase_check_eta(rs, re, ks))
+    timing_eta, worst_eta = phase_timing_eta(rs, re, ks)
+    for name, (rel, ab) in worst_eta.items():
+        worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
+    psr_eta, grid_eta_launches = phase_grid_eta_path(counters)
+    phase_dense_eta_start(rs, pp, ks)
+    t0 = time.perf_counter()
+    dense_eta_launches = phase_dense_eta_path(counters, run_large)
+    emit({"phase": "dense_eta_path_done", "seconds": time.perf_counter() - t0})
+    phase_eta_route_agreement(backend, counters)
+    phase_poly_precision(rs, re, tr)
+    t0 = time.perf_counter()
+    phase_api_eta(counters, icp_two_set, icp_atlas)
+    emit({"phase": "api_eta_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    # an outer iteration cut to one L-BFGS step of 10 inner iterations: the
+    # trace's own cost grows with its launches
+    phase_profile(psr_eta, counters, phase="profile_eta",
+                  evals_of=lambda c: c["rhs_self"]["rhs_self_fwd_eta"] / psr_eta.lcfg.nt,
+                  run_kw=dict(GRID_RUN, reg_nmax=1), host_ops=True)
+    emit({"phase": "profile_eta_done", "seconds": time.perf_counter() - t0})
 
     pr = "difficp_tpu/ops/pallas_reductions.py"
     sources = {"rhs_self": "difficp_torch/csrc/rhs_self.cu",
@@ -906,6 +1567,31 @@ def main():
             "max_rel_err": worst[name][0], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")})
+    pk = "difficp_tpu/ops/pallas_ksum.py"
+    eta_kernels = {
+        "ksum": ("difficp_torch/csrc/ksum.cu", f"{pk}:266",
+                 [f"{pk}:71", f"{pk}:205", f"{pk}:98", f"{pk}:110", f"{pk}:382",
+                  f"{pk}:315"]),
+        "rhs_self_fwd_eta": (sources["rhs_self"], f"{pr}:179", [f"{pr}:83"]),
+        "rhs_ext_fwd_eta": (sources["rhs_ext"], f"{pr}:271", [f"{pr}:211"]),
+    }
+    for name, (source, rep, also) in eta_kernels.items():
+        shapes = timing_eta[name]
+        # the headline shape: the grid eta path's costliest call of the kernel
+        grid = [r for r in shapes if not r["call"].startswith("dense")]
+        t = max(grid, key=lambda r: r["ms"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": rep,
+            "also_replaces": also, "launches": grid_eta_launches[name],
+            "launches_by_path": {"grid_eta_path": grid_eta_launches[name],
+                                 "dense_eta_path": dense_eta_launches[name]},
+            "max_abs_err": worst[name][1], "max_rel_err": worst[name][0],
+            "shape": t["call"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"),
+            "shapes": [{key: r[key] for key in ("call", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+                       for r in shapes]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

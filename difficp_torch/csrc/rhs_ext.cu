@@ -1,6 +1,6 @@
-// External-point LDDMM right-hand side for eta = 0: the cross terms between
-// data points x (advected by the flow) and the support (q, p), forward and
-// VJP, for sm_90a.  Plain C interface, loaded with ctypes by
+// External-point LDDMM right-hand side: the cross terms between data points x
+// (advected by the flow) and the support (q, p), forward (any eta) and VJP
+// (eta = 0), for sm_90a.  Plain C interface, loaded with ctypes by
 // difficp_torch/ops/rhs_ext.py.
 //
 // Notation: u = 1/sigma^2, k_ij = exp(-u |x_i - q_j|^2 / 2), delta_ij =
@@ -9,6 +9,10 @@
 //
 //   forward   vx_i = mx_i sum_j mq_j k_ij p_j
 //             dc_i = u mx_i sum_j mq_j k_ij (p_j.delta_ij)  (0 without logdet)
+//             and with the gradcomponent field (eta != 0; reference
+//             LDDMM.py:113-138) the added terms, r2 = |delta_ij|^2:
+//             vx_i += eta u mx_i sum_j mq_j k_ij delta_ij
+//             dc_i += eta u mx_i sum_j mq_j k_ij (u r2 - D)
 //   dx        (cotangents gx of vx, gc of sum_i dc_i; Gx_i = mx_i gx_i)
 //             dx_l = -u sum_j mq_j k_lj [(Gx_l + c_l delta_lj).p_j] delta_lj
 //                    + c_l sum_j mq_j k_lj p_j,            c_l = gc u mx_l
@@ -18,7 +22,8 @@
 //
 // (docs/MATH.md, "Ext RHS".)  Replaces the TPU kernels of
 // difficp_tpu/ops/pallas_reductions.py:
-//   forward:  _vx_mm_kernel (via _vx_fwd_pallas, eta = 0);
+//   forward:  _vx_mm_kernel (via _vx_fwd_pallas, eta = 0) and, as the ETA
+//             instance, the any-eta streaming _vx_kernel (via _vx_fwd_pallas);
 //   dx:       _ext_bwd_dx_mm_kernel   } both via _ext_bwd_pallas
 //   dq, dp:   _ext_bwd_dqdp_mm_kernel }
 //
@@ -45,6 +50,12 @@
 // The TPU's payload-matmul tables and their per-frame re-centering
 // (_mm_center) exist to feed its matrix unit; the direct form works in
 // differences only, so neither is needed here.
+// eta is a template switch of the forward: the ETA = false instance is the
+// eta = 0 kernel as it was; the ETA = true instance adds three sums in the
+// same pass (sum k, sum k r2, sum k delta), combined per row at the end, so
+// that at eta = 0 it gives the ETA = false results bit for bit.  The
+// gradcomponent terms add 2 D + 3 FP32 operations per pair to the function's
+// least work (ops/rhs_ext.py, fwd_eta_ops_per_pair), still one exponential.
 
 #include <cuda_runtime.h>
 
@@ -52,13 +63,13 @@
 
 namespace {
 
-template <int D>
+template <int D, bool ETA>
 __global__ void __launch_bounds__(kThreads)
 rhs_ext_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mx,
                    const float* __restrict__ q, const float* __restrict__ p,
                    const float* __restrict__ mq, float* __restrict__ vx,
                    float* __restrict__ dc, int N, int M, float u,
-                   int withlogdet) {
+                   int withlogdet, float eta) {
   constexpr int NF = 2 * D + 1;  // record: q_j, p_j, mq_j
   constexpr int NV = Record<NF>::kWords;
   __shared__ float4 tile[kThreads * NV];
@@ -83,6 +94,10 @@ rhs_ext_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mx,
   float av[D], adc = 0.f;
 #pragma unroll
   for (int d = 0; d < D; ++d) av[d] = 0.f;
+  // gradcomponent sums: k, k r2, k delta
+  float ek = 0.f, ekr2 = 0.f, ekd[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) ekd[d] = 0.f;
 
   for (int base = 0; base < M; base += kThreads) {
     const int j = base + threadIdx.x;
@@ -105,32 +120,56 @@ rhs_ext_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mx,
     float tv[D], tdc = 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) tv[d] = 0.f;
+    float tk = 0.f, tkr2 = 0.f, tkd[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) tkd[d] = 0.f;
 #pragma unroll 4
     for (int jj = 0; jj < n; ++jj) {
       float f[4 * NV];
       load_record<NF>(&tile[jj * NV], f);
+      float dd[D];
       float r2 = 0.f, pd = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        const float dd = xi[d] - f[d];
-        r2 = fmaf(dd, dd, r2);
-        pd = fmaf(f[D + d], dd, pd);
+        dd[d] = xi[d] - f[d];
+        r2 = fmaf(dd[d], dd[d], r2);
+        pd = fmaf(f[D + d], dd[d], pd);
       }
       const float k = f[2 * D] * exp2f(c2 * r2);
 #pragma unroll
       for (int d = 0; d < D; ++d) tv[d] = fmaf(k, f[D + d], tv[d]);
       tdc = fmaf(k, pd, tdc);
+      if constexpr (ETA) {
+        tk += k;
+        tkr2 = fmaf(k, r2, tkr2);
+#pragma unroll
+        for (int d = 0; d < D; ++d) tkd[d] = fmaf(k, dd[d], tkd[d]);
+      }
     }
 #pragma unroll
     for (int d = 0; d < D; ++d) av[d] += tv[d];
     adc += tdc;
+    if constexpr (ETA) {
+      ek += tk;
+      ekr2 += tkr2;
+#pragma unroll
+      for (int d = 0; d < D; ++d) ekd[d] += tkd[d];
+    }
     __syncthreads();
   }
 
   if (row_ok) {
+    if constexpr (ETA) {
+      // the eta = 0 parts as the ETA = false branch forms them
+      const float me = mi * eta * u;
 #pragma unroll
-    for (int d = 0; d < D; ++d) vx[(size_t)i * D + d] = mi * av[d];
-    dc[i] = withlogdet ? u * mi * adc : 0.f;
+      for (int d = 0; d < D; ++d) vx[(size_t)i * D + d] = fmaf(me, ekd[d], mi * av[d]);
+      dc[i] = withlogdet ? fmaf(me, fmaf(u, ekr2, -D * ek), u * mi * adc) : 0.f;
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) vx[(size_t)i * D + d] = mi * av[d];
+      dc[i] = withlogdet ? u * mi * adc : 0.f;
+    }
   }
 }
 
@@ -344,11 +383,13 @@ extern "C" {
 
 // x: (B, N, D), mx: (B, N); q, p: (B, M, D), mq: (B, M), all float32.
 // Writes vx (B, N, D) and dc (B, N), the per-row partials of the divergence
-// cost.  Returns cudaGetLastError() after the launch.
-int difficp_rhs_ext_fwd(const void* x, const void* mx, const void* q,
-                        const void* p, const void* mq, void* vx, void* dc, int B,
-                        int N, int M, int D, float u, int withlogdet,
-                        void* stream) {
+// cost; the gradcomponent terms of eta when use_eta is nonzero (the ETA
+// instance; use_eta = 0 runs the eta = 0 kernel).  Returns cudaGetLastError()
+// after the launch.
+int difficp_rhs_ext_fwd_eta(const void* x, const void* mx, const void* q,
+                            const void* p, const void* mq, void* vx, void* dc,
+                            int B, int N, int M, int D, float u, int withlogdet,
+                            float eta, int use_eta, void* stream) {
   if (B <= 0 || N <= 0 || M <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + kThreads - 1) / kThreads, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -359,16 +400,31 @@ int difficp_rhs_ext_fwd(const void* x, const void* mx, const void* q,
   const auto* mqf = static_cast<const float*>(mq);
   auto* vf = static_cast<float*>(vx);
   auto* df = static_cast<float*>(dc);
-  if (D == 2) {
-    rhs_ext_fwd_kernel<2><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf, df,
-                                                    N, M, u, withlogdet);
+  if (D == 2 && use_eta) {
+    rhs_ext_fwd_kernel<2, true><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf,
+                                                          df, N, M, u, withlogdet, eta);
+  } else if (D == 2) {
+    rhs_ext_fwd_kernel<2, false><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf,
+                                                           df, N, M, u, withlogdet, 0.f);
+  } else if (D == 3 && use_eta) {
+    rhs_ext_fwd_kernel<3, true><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf,
+                                                          df, N, M, u, withlogdet, eta);
   } else if (D == 3) {
-    rhs_ext_fwd_kernel<3><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf, df,
-                                                    N, M, u, withlogdet);
+    rhs_ext_fwd_kernel<3, false><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf,
+                                                           df, N, M, u, withlogdet, 0.f);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The eta = 0 forward (the ETA = false instance).
+int difficp_rhs_ext_fwd(const void* x, const void* mx, const void* q,
+                        const void* p, const void* mq, void* vx, void* dc, int B,
+                        int N, int M, int D, float u, int withlogdet,
+                        void* stream) {
+  return difficp_rhs_ext_fwd_eta(x, mx, q, p, mq, vx, dc, B, N, M, D, u,
+                                 withlogdet, 0.f, 0, stream);
 }
 
 // gx: (B, N, D) cotangent of vx; gc: (B,) cotangent of each frame's dcost, on

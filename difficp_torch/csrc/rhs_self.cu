@@ -1,13 +1,20 @@
-// Fused LDDMM self right-hand side for eta = 0 (forward) and its VJP
+// Fused LDDMM self right-hand side (forward, any eta) and its VJP at eta = 0
 // (backward), for sm_90a.  Plain C interface, loaded with ctypes by
 // difficp_torch/ops/rhs_self.py.
 //
 // Notation: u = 1/sigma^2, k_ij = exp(-u |q_i - q_j|^2 / 2), d_ij = q_i - q_j,
-// m the point mask.  Per frame b of a batch, rows 0..M-1:
+// r2 = |d_ij|^2, c_ij = p_i - p_j, m the point mask.  Per frame b of a batch,
+// rows 0..M-1:
 //
 //   forward   v_i  = m_i sum_j m_j k_ij p_j
 //             w_i  = u m_i sum_j m_j k_ij (p_i.p_j) d_ij           (= -Gq)
 //             dc_i = -u m_i sum_j m_j k_ij (p_i.d_ij)  (0 without logdet)
+//   and with the gradcomponent field (eta != 0; reference LDDMM.py:113-116,
+//   196-216) the added terms
+//             v_i  += eta u m_i sum_j m_j k_ij d_ij
+//             w_i  += eta m_i sum_j m_j k_ij [u^2 (d_ij.c_ij) d_ij - u c_ij]
+//                     - eta^2 u^2 m_i sum_j m_j k_ij (u r2 - (D + 2)) d_ij
+//             dc_i += eta u m_i sum_j m_j k_ij (u r2 - D)
 //   backward  (cotangents a of v, b of w, c of sum_i dc_i)
 //             dp_l = m_l sum_j m_j k_lj [a_j + u ((b_l-b_j).d_lj) p_j - u c d_lj]
 //             dq_l = m_l u sum_j m_j k_lj [-S_lj d_lj + (p_l.p_j)(b_l-b_j)
@@ -18,7 +25,9 @@
 // Replaces the TPU kernels of difficp_tpu/ops/pallas_reductions.py:
 //   forward:  _rhs_self_sym_mm_kernel (via _rhs_self_fwd_sym_mm),
 //             _rhs_self_sym_pair_kernel mode="fwd" (via _sym_block_tables),
-//             _rhs_self_mm_kernel (via _rhs_self_fwd_mm);
+//             _rhs_self_mm_kernel (via _rhs_self_fwd_mm); and, as the ETA
+//             instance, the any-eta streaming _rhs_self_kernel (via
+//             _rhs_self_fwd_pallas);
 //   backward: _rhs_self_bwd_mm_kernel (via _rhs_self_bwd_mm),
 //             _rhs_self_sym_pair_kernel mode="bwd" (via _sym_block_grads).
 //
@@ -45,6 +54,15 @@
 // (8, M) packing) existed to use a matrix unit; the direct form has none of
 // their (R/sigma)^2 cancellation, so neither Morton ordering nor per-block
 // re-centering of the coordinates is needed here.
+//
+// eta is a template switch: the ETA = false instance is the eta = 0 kernel
+// as it was, and the ETA = true instance adds five sums in the same pass
+// (sum k, sum k d, sum k r2, sum k r2 d, sum k (d.c) d) and combines them per
+// row at the end, so at eta = 0 its v, w and dc equal the ETA = false ones
+// bit for bit.  The gradcomponent terms add 24 D + 4 FP32 operations per
+// unordered pair to the function's least work (ops/rhs_self.py,
+// fwd_eta_ops_per_unordered_pair); the kernel adds about 7 D + 3 per ordered
+// pair, and still one exponential.
 
 #include <cuda_runtime.h>
 
@@ -52,12 +70,12 @@
 
 namespace {
 
-template <int D>
+template <int D, bool ETA>
 __global__ void __launch_bounds__(kThreads)
 rhs_self_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
                     const float* __restrict__ m, float* __restrict__ v,
                     float* __restrict__ w, float* __restrict__ dc, int M,
-                    float u, int withlogdet) {
+                    float u, int withlogdet, float eta) {
   constexpr int NF = 2 * D + 1;  // record: q_j, p_j, m_j
   constexpr int NV = Record<NF>::kWords;
   __shared__ float4 tile[kThreads * NV];
@@ -84,6 +102,10 @@ rhs_self_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
   float av[D], aw[D], adc = 0.f;
 #pragma unroll
   for (int d = 0; d < D; ++d) av[d] = aw[d] = 0.f;
+  // gradcomponent sums: k, k r2, k d, k r2 d, k (d.c) d
+  float ek = 0.f, ekr2 = 0.f, ekd[D], ekr2d[D], ekdc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) ekd[d] = ekr2d[d] = ekdc[d] = 0.f;
 
   for (int base = 0; base < M; base += kThreads) {
     const int j = base + threadIdx.x;
@@ -105,6 +127,9 @@ rhs_self_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
     float tv[D], tw[D], tdc = 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) tv[d] = tw[d] = 0.f;
+    float tk = 0.f, tkr2 = 0.f, tkd[D], tkr2d[D], tkdc[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) tkd[d] = tkr2d[d] = tkdc[d] = 0.f;
 #pragma unroll 4
     for (int jj = 0; jj < kThreads; ++jj) {
       float f[4 * NV];
@@ -126,6 +151,21 @@ rhs_self_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
         tw[d] = fmaf(kpp, dd[d], tw[d]);
       }
       tdc = fmaf(k, pd, tdc);
+      if constexpr (ETA) {
+        float dcv = 0.f;  // d.c = d.p_i - d.p_j
+#pragma unroll
+        for (int d = 0; d < D; ++d) dcv = fmaf(dd[d], pi[d] - f[D + d], dcv);
+        const float kr2 = k * r2;
+        const float kdc = k * dcv;
+        tk += k;
+        tkr2 += kr2;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          tkd[d] = fmaf(k, dd[d], tkd[d]);
+          tkr2d[d] = fmaf(kr2, dd[d], tkr2d[d]);
+          tkdc[d] = fmaf(kdc, dd[d], tkdc[d]);
+        }
+      }
     }
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -133,16 +173,41 @@ rhs_self_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
       aw[d] += tw[d];
     }
     adc += tdc;
+    if constexpr (ETA) {
+      ek += tk;
+      ekr2 += tkr2;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        ekd[d] += tkd[d];
+        ekr2d[d] += tkr2d[d];
+        ekdc[d] += tkdc[d];
+      }
+    }
     __syncthreads();
   }
 
   if (row_ok) {
+    if constexpr (ETA) {
+      // sum_j k c_j = p_i sum k - sum k p_j;  sum k (u r2 - (D + 2)) d
+      const float eu = eta * u;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      v[(size_t)i * D + d] = mi * av[d];
-      w[(size_t)i * D + d] = u * mi * aw[d];
+      for (int d = 0; d < D; ++d) {
+        const float lap = fmaf(u, ekr2d[d], -(D + 2) * ekd[d]);
+        const float kc = fmaf(pi[d], ek, -av[d]);
+        const float extra = eu * (fmaf(u, ekdc[d], -kc) - eta * u * lap);
+        // the eta = 0 parts as the ETA = false branch forms them
+        v[(size_t)i * D + d] = fmaf(mi * eu, ekd[d], mi * av[d]);
+        w[(size_t)i * D + d] = fmaf(mi, extra, u * mi * aw[d]);
+      }
+      dc[i] = withlogdet ? fmaf(mi * eu, fmaf(u, ekr2, -D * ek), -u * mi * adc) : 0.f;
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        v[(size_t)i * D + d] = mi * av[d];
+        w[(size_t)i * D + d] = u * mi * aw[d];
+      }
+      dc[i] = withlogdet ? -u * mi * adc : 0.f;
     }
-    dc[i] = withlogdet ? -u * mi * adc : 0.f;
   }
 }
 
@@ -263,10 +328,12 @@ rhs_self_bwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
 extern "C" {
 
 // q, p: (B, M, D) float32; m: (B, M); v, w: (B, M, D); dc: (B, M) per-row
-// partials of the divergence cost.  Returns cudaGetLastError() after launch.
-int difficp_rhs_self_fwd(const void* q, const void* p, const void* m, void* v,
-                         void* w, void* dc, int B, int M, int D, float u,
-                         int withlogdet, void* stream) {
+// partials of the divergence cost; the gradcomponent terms of eta when use_eta
+// is nonzero (the ETA instance; use_eta = 0 runs the eta = 0 kernel).  Returns
+// cudaGetLastError() after launch.
+int difficp_rhs_self_fwd_eta(const void* q, const void* p, const void* m, void* v,
+                             void* w, void* dc, int B, int M, int D, float u,
+                             int withlogdet, float eta, int use_eta, void* stream) {
   if (B <= 0 || M <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((M + kThreads - 1) / kThreads, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -276,16 +343,30 @@ int difficp_rhs_self_fwd(const void* q, const void* p, const void* m, void* v,
   auto* vf = static_cast<float*>(v);
   auto* wf = static_cast<float*>(w);
   auto* df = static_cast<float*>(dc);
-  if (D == 2) {
-    rhs_self_fwd_kernel<2><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M, u,
-                                                     withlogdet);
+  if (D == 2 && use_eta) {
+    rhs_self_fwd_kernel<2, true><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M,
+                                                           u, withlogdet, eta);
+  } else if (D == 2) {
+    rhs_self_fwd_kernel<2, false><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M,
+                                                            u, withlogdet, 0.f);
+  } else if (D == 3 && use_eta) {
+    rhs_self_fwd_kernel<3, true><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M,
+                                                           u, withlogdet, eta);
   } else if (D == 3) {
-    rhs_self_fwd_kernel<3><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M, u,
-                                                     withlogdet);
+    rhs_self_fwd_kernel<3, false><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M,
+                                                            u, withlogdet, 0.f);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The eta = 0 forward (the ETA = false instance).
+int difficp_rhs_self_fwd(const void* q, const void* p, const void* m, void* v,
+                         void* w, void* dc, int B, int M, int D, float u,
+                         int withlogdet, void* stream) {
+  return difficp_rhs_self_fwd_eta(q, p, m, v, w, dc, B, M, D, u, withlogdet,
+                                  0.f, 0, stream);
 }
 
 // a, b: cotangents of v and w, (B, M, D); gc: (B,) cotangent of each frame's

@@ -212,11 +212,11 @@ def v2p(cfg: LDDMMConfig, q, v_target, rcond=1e-3, alpha=1e-4,
     """Estimate momenta p with v(q, q, p) ~= v_target (ill-posed; pinv or
     ridge regularized, LDDMM.py:235-253).  Above the dense pair limit the
     O(M^3) solves are out of reach: "pinv" and "ridge" then switch to the
-    matrix-free CG ridge solve, as in the JAX package."""
+    matrix-free CG ridge solve, as in the JAX package.  With the
+    gradcomponent field the right-hand side is v_target + eta grad_kred(q,
+    q), through the dispatched grad_kred."""
     if cfg.eta != 0.0:
-        raise NotImplementedError(
-            "v2p with gradcomponent=True needs grad_kred, which comes with the "
-            "eta != 0 slice")
+        v_target = v_target + cfg.eta * red.grad_kred(q, q, cfg.sigma, qmask)
     m = q.shape[-2]
     if version in ("pinv", "ridge", "ridge_keops", "ridge_pytorch") and (
             m * m > red.DENSE_PAIR_LIMIT):

@@ -156,6 +156,10 @@ class MultiPSR:
         self.FE: Optional[float] = None
         self.last_reg_stats = None
         self.fe_increase_events = 0
+        # True while FE omits the energy of start momenta that are not zero
+        # (DiffPSR at eta != 0); the next registration step is then not
+        # compared with it
+        self._fe_baseline_stale = False
 
     # ----- structure views ------------------------------------------------
 
@@ -301,16 +305,19 @@ class DiffPSR(MultiPSR):
         self.initialize_a0()
         self.update_GMM_targets()
 
-    def initialize_a0(self):
-        """a0 for zero initial speeds (PSR.py:406-413): exactly zero when
-        eta == 0."""
+    def initialize_a0(self, rcond=1e-3):
+        """a0 for (approximately) zero initial speeds (PSR.py:406-413):
+        exactly zero when eta == 0, else the momenta v2p gives for a zero
+        field, whose gradcomponent right-hand side is not zero."""
         self._reg_vg = None
         self._reg_stall = None
-        if self.lcfg.eta != 0.0:
-            raise NotImplementedError(
-                "gradcomponent=True needs v2p with the gradcomponent field, "
-                "which comes with the eta != 0 slice")
-        self.a0 = torch.zeros_like(self.q0)
+        if self.lcfg.eta == 0.0:
+            self.a0 = torch.zeros_like(self.q0)
+            return
+        with torch.no_grad():
+            self.a0 = lddmm_mod.v2p(self.lcfg, self.q0, torch.zeros_like(self.q0),
+                                    rcond=rcond, qmask=self.qmask)
+        self._fe_baseline_stale = True
 
     def update_a0(self, q0_prev, qmask_prev, a0_prev=None, rcond=1e-1):
         """Project the previous vector field onto the new support
@@ -323,6 +330,7 @@ class DiffPSR(MultiPSR):
                                     qmask=self.qmask)
         self._reg_vg = None  # new support / momenta: stale entry (value, grad)
         self._reg_stall = None
+        self._fe_baseline_stale = self._fe_baseline_stale or self.lcfg.eta != 0.0
 
     def set_support_scheme(self, scheme="decim", rho=1.0, xticks=None,
                            yticks=None, q0=None):
@@ -423,7 +431,18 @@ class DiffPSR(MultiPSR):
             msg = f"Reg_opt ({self.K} frames in lockstep) : loss={total_loss:.4}"
         else:
             msg = None
+        self._drop_stale_baseline()
         self.update_FE(message=msg)
+
+    def _drop_stale_baseline(self):
+        """At eta != 0 the start momenta (initialize_a0, update_a0) carry
+        energy and move the points, but FE was recorded without them
+        (regloss 0, x1 = x0, as the JAX package and the reference keep it).
+        The first registration step after them is not compared with that
+        value: the monotone-FE check resumes from the step's own FE."""
+        if self._fe_baseline_stale:
+            self.FE = None
+            self._fe_baseline_stale = False
 
     def _gmm_pass(self, max_em, em_tol):
         """EM on every structure from the current warped points: new GMM
@@ -490,6 +509,7 @@ class DiffPSR(MultiPSR):
             self._reg_memory = mem
         fes_host = torch.stack(fes).double().cpu().numpy()
         inc = int(np.sum(np.diff(fes_host) > 1e-4 * np.abs(fes_host[:-1]) + 1e-6))
+        self._drop_stale_baseline()
         if self.FE is not None and fes_host[0] > self.FE + 1e-4 * abs(self.FE):
             inc += 1
         if inc and self.printstuff:

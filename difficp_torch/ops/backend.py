@@ -8,12 +8,13 @@ Two routes with one contract:
                 the JAX package's pair counts.
 - ``kernel`` -- autograd Functions and ops over the hand-written CUDA
                 kernels: the fused self RHS and Hamiltonian
-                (``ops/rhs_self.py``), the external-point RHS
-                (``ops/rhs_ext.py``) and the top-2 minimum (``ops/kmin2.py``);
-                used above the limit (eta = 0 for the RHS).  On a CPU tensor
-                they take the kernels' plain PyTorch versions, which stand in
-                for the JAX package's ``blockwise`` route until that module
-                is ported.
+                (``ops/rhs_self.py``), the external-point RHS and v_field
+                (``ops/rhs_ext.py``), the top-2 minimum (``ops/kmin2.py``) and,
+                for the gradcomponent model (eta != 0), the generic
+                kernel-sums (``ops/ksum.py``, ``ops/pair_poly.py``); used
+                above the limit, at any eta.  On a CPU tensor they take the
+                kernels' plain PyTorch versions, which stand in for the JAX
+                package's ``blockwise`` route until that module is ported.
 
 ``set_backend("kernel")`` forces the kernel route at any size (the API's
 ``"pallas"`` maps to it).  Routes that are not ported yet raise
@@ -25,6 +26,7 @@ from __future__ import annotations
 import os
 
 from difficp_torch.ops import kmin2 as _kmin2
+from difficp_torch.ops import ksum as _ksum
 from difficp_torch.ops import reductions as _dense
 from difficp_torch.ops import rhs_ext as _ext
 from difficp_torch.ops import rhs_self as _kernel
@@ -33,9 +35,6 @@ from difficp_torch.ops import rhs_self as _kernel
 DENSE_PAIR_LIMIT = int(os.environ.get("DIFFICP_DENSE_PAIR_LIMIT", 4_000_000))
 
 _FORCE = {"mode": None}  # None = auto; "dense" | "kernel"
-
-_ETA_SLICE = ("eta != 0 above the dense pair limit is not ported yet: it "
-              "comes with the eta != 0 slice")
 
 
 def set_backend(mode):
@@ -63,9 +62,7 @@ def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None):
     m = q.shape[-2]
     if _use_dense(m, m):
         return _dense.lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q)
-    if eta != 0.0:
-        raise NotImplementedError(_ETA_SLICE)
-    return _kernel.lddmm_rhs_self(q, p, sigma, withlogdet, mask_q)
+    return _kernel.lddmm_rhs_self(q, p, sigma, withlogdet, mask_q, eta)
 
 
 def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None):
@@ -74,9 +71,7 @@ def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None):
     m = q.shape[-2]
     if _use_dense(m, m + x.shape[-2]):
         return _dense.lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q, mask_x)
-    if eta != 0.0:
-        raise NotImplementedError(_ETA_SLICE)
-    return _ext.lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q, mask_x)
+    return _ext.lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q, mask_x, eta)
 
 
 def hamiltonian(q, p, sigma, eta, mask_q=None):
@@ -84,19 +79,24 @@ def hamiltonian(q, p, sigma, eta, mask_q=None):
     m = q.shape[-2]
     if _use_dense(m, m):
         return _dense.hamiltonian(q, p, sigma, eta, mask_q)
-    if eta != 0.0:
-        raise NotImplementedError(_ETA_SLICE)
-    return _kernel.hamiltonian(q, p, sigma, mask_q)
+    return _kernel.hamiltonian(q, p, sigma, mask_q, eta)
 
 
 def v_field(x, q, p, sigma, eta, mask_q=None):
-    """RKHS vector field at points x; above the limit at eta = 0 the ext
-    forward kernel with logdet off (the JAX package's make_v_field)."""
+    """RKHS vector field at points x; above the limit the ext forward kernel
+    with logdet off (the JAX package's make_v_field)."""
     if _use_dense(x.shape[-2], q.shape[-2]):
         return _dense.v_field(x, q, p, sigma, eta, mask_q)
-    if eta != 0.0:
-        raise NotImplementedError(_ETA_SLICE)
-    return _ext.v_field(x, q, p, sigma, mask_q)
+    return _ext.v_field(x, q, p, sigma, mask_q, eta)
+
+
+def grad_kred(x, y, sigma, mask_y=None):
+    """sum_j (grad K)(x_i - y_j) m_j (reference kernel.py:142); above the
+    limit the generic kernel-sum with its VJP (the JAX package's
+    grad_kred_mm)."""
+    if _use_dense(x.shape[-2], y.shape[-2]):
+        return _dense.grad_kred(x, y, sigma, mask_y)
+    return _ksum.grad_kred(x, y, sigma, mask_y)
 
 
 def kred(x, y, b, sigma, mask_y=None):
@@ -109,7 +109,7 @@ def kred(x, y, b, sigma, mask_y=None):
     if x is not y:
         raise NotImplementedError(
             "kred between two point sets above the dense pair limit is not "
-            "ported yet: it comes with the kernel op layer (pallas_ksum)")
+            "ported yet: the kernel op layer has no kred_mm (no path runs it)")
     m = _kernel._ones_mask(x) if mask_y is None else mask_y.contiguous()
     v, _, _ = _kernel.rhs_self_fwd(x.contiguous(), b.contiguous(), m, float(sigma),
                                    False)

@@ -85,6 +85,13 @@ def kred(x, y, b, sigma, mask_y=None):
     return k @ b
 
 
+def grad_kred(x, y, sigma, mask_y=None):
+    """sum_j (grad K)(x_i - y_j) m_j = sum_j (y_j - x_i) K m_j / s^2
+    (reference kernel.py:142,190)."""
+    diff, _, k = _kmat(x, y, sigma, mask_y)
+    return -(k[..., None] * diff).sum(-2) / sigma**2
+
+
 def v_field(x, q, p, sigma, eta, mask_q=None):
     """RKHS vector field at points x (LDDMM.py:100-116):
     v(x_i) = sum_j [ p_j K(x_i - q_j) - eta (grad K)(x_i - q_j) ]."""

@@ -1,5 +1,4 @@
-"""External-point LDDMM right-hand side for eta = 0, with hand-written CUDA
-kernels.
+"""External-point LDDMM right-hand side, with hand-written CUDA kernels.
 
 Under grid or custom support the data points x are advected by the flow of
 the support (q, p).  With u = 1/sigma^2, k_ij = exp(-u |x_i - q_j|^2 / 2),
@@ -18,6 +17,16 @@ the TPU kernels of ``difficp_tpu/ops/pallas_reductions.py``: ``_vx_mm_kernel``
 (via ``_vx_fwd_pallas``) and ``_ext_bwd_dx_mm_kernel`` +
 ``_ext_bwd_dqdp_mm_kernel`` (via ``_ext_bwd_pallas``).  What bounds them and
 how their design answers it is noted in the source.
+
+The forward kernel takes eta as a template switch: its ETA instance adds the
+gradcomponent terms of ``csrc/rhs_ext.cu``'s header (the TPU's any-eta
+``_vx_kernel``).  At eta != 0, ``RHSExt`` routes as the JAX package's
+``make_rhs_ext``: one centroid shift shared by all its parts, the support's
+self terms as ``rhs_self.RHSSelf`` takes them (the any-eta kernel), the
+cross forward through the any-eta kernel below ``rhs_self._POLY_FWD_MIN_M``
+data points a frame and through the generated kernel-sums of
+``ops/pair_poly.py`` from there on, and the backward through the generated
+kernel-sums.
 
 Beside each kernel is its plain PyTorch version (``*_reference``), chunked
 over rows so memory stays O(chunk M).  A tensor on the CPU takes the plain
@@ -38,7 +47,8 @@ from difficp_torch.ops import _build, rhs_self
 from difficp_torch.ops.rhs_self import _check, _chunk_rows, _frames, _ones_mask, _raise_on
 
 # kernel launches since the last reset (reset by assigning 0)
-launches = {"rhs_ext_fwd": 0, "rhs_ext_bwd_dx": 0, "rhs_ext_bwd_dqdp": 0}
+launches = {"rhs_ext_fwd": 0, "rhs_ext_bwd_dx": 0, "rhs_ext_bwd_dqdp": 0,
+            "rhs_ext_fwd_eta": 0}
 
 # data rows per chunk of the dq/dp kernel's split of the data axis: at
 # N = 65,536 and 10 frames of M ~ 342 support points, 32 chunks x 3 row
@@ -71,6 +81,22 @@ def fwd_ops_per_pair(d: int) -> int:
     6e-8 relative rounding).
     """
     return 5 * d + 1
+
+
+def fwd_eta_ops_per_pair(d: int, withlogdet: bool) -> int:
+    """The least FP32 work of the any-eta forward per pair, counted as
+    ``fwd_ops_per_pair`` counts it, with sum_j k delta_ij = x_i sum_j k -
+    sum_j k q_j per row:
+
+        the eta = 0 terms                           5d + 1  (5d - 1 without
+                                                    the dcost line)
+        s0_i += k                                   1
+        B_i += k q_j                                2d
+        dcost: C_i += k r2                          2       (logdet only)
+
+    which makes 7d + 4 with logdet and 7d without.
+    """
+    return 7 * d + (4 if withlogdet else 0)
 
 
 def dx_ops_per_pair(d: int) -> int:
@@ -123,10 +149,11 @@ def _gauss(d, u):
     return torch.exp(-0.5 * u * (d * d).sum(-1))
 
 
-def rhs_ext_fwd_reference(x, mx, q, p, mq, sigma, withlogdet):
-    """Plain version of the forward kernel: (vx, per-row dcost partials)."""
+def rhs_ext_fwd_reference(x, mx, q, p, mq, sigma, withlogdet, eta=0.0):
+    """Plain version of the forward kernel: (vx, per-row dcost partials), with
+    the gradcomponent terms when eta != 0."""
     u = 1.0 / (sigma * sigma)
-    n = x.shape[-2]
+    n, dim = x.shape[-2], x.shape[-1]
     chunk = _chunk_rows(q.shape[-2], q.shape[-1])
     vxs, dcs = [], []
     for lo in range(0, n, chunk):
@@ -134,9 +161,14 @@ def rhs_ext_fwd_reference(x, mx, q, p, mq, sigma, withlogdet):
         d = x[..., lo:hi, None, :] - q[..., None, :, :]
         k = _gauss(d, u) * mq[..., None, :]
         mi = mx[..., lo:hi]
-        vxs.append(mi[..., None] * (k @ p))
+        vx = k @ p
+        if eta != 0.0:
+            vx = vx + eta * u * (k[..., None] * d).sum(-2)
+        vxs.append(mi[..., None] * vx)
         if withlogdet:
             pd = (d * p[..., None, :, :]).sum(-1)
+            if eta != 0.0:
+                pd = pd + eta * (u * (d * d).sum(-1) - dim)
             dcs.append(u * mi * (k * pd).sum(-1))
         else:
             dcs.append(torch.zeros_like(mi))
@@ -203,6 +235,8 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.difficp_rhs_ext_fwd.argtypes = [vp] * 7 + [ci] * 4 + [cf, ci, vp]
         lib.difficp_rhs_ext_fwd.restype = ci
+        lib.difficp_rhs_ext_fwd_eta.argtypes = [vp] * 7 + [ci] * 4 + [cf, ci, cf, ci, vp]
+        lib.difficp_rhs_ext_fwd_eta.restype = ci
         lib.difficp_rhs_ext_bwd_dx.argtypes = [vp] * 8 + [ci] * 4 + [cf, ci, vp]
         lib.difficp_rhs_ext_bwd_dx.restype = ci
         lib.difficp_rhs_ext_bwd_dqdp.argtypes = [vp] * 9 + [ci] * 5 + [cf, ci, vp]
@@ -223,11 +257,18 @@ def _check_pair(name, x, q):
     return nb, n, m, d
 
 
-def rhs_ext_fwd(x, mx, q, p, mq, sigma, withlogdet):
-    """(vx, per-row dcost partials).  CPU tensors take the plain version; CUDA
-    tensors launch the forward kernel."""
+def rhs_ext_fwd(x, mx, q, p, mq, sigma, withlogdet, eta=0.0):
+    """(vx, per-row dcost partials), with the gradcomponent terms when eta !=
+    0.  CPU tensors take the plain version; CUDA tensors launch the forward
+    kernel (its ETA instance when eta != 0)."""
     if x.device.type == "cpu":
-        return rhs_ext_fwd_reference(x, mx, q, p, mq, sigma, withlogdet)
+        return rhs_ext_fwd_reference(x, mx, q, p, mq, sigma, withlogdet, eta)
+    return launch_fwd(x, mx, q, p, mq, sigma, withlogdet, eta, eta != 0.0)
+
+
+def launch_fwd(x, mx, q, p, mq, sigma, withlogdet, eta, use_eta):
+    """One launch of the forward kernel on CUDA tensors: the ETA instance
+    when ``use_eta`` (at any eta, 0 included), else the eta = 0 instance."""
     nb, n, m, d = _check_pair("rhs_ext_fwd", x, q)
     _check("x", x, x.shape, x.device)
     _check("mx", mx, x.shape[:-1], x.device)
@@ -237,12 +278,13 @@ def rhs_ext_fwd(x, mx, q, p, mq, sigma, withlogdet):
     vx = torch.empty_like(x)
     dc = torch.empty_like(mx)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().difficp_rhs_ext_fwd(
+    err = _lib().difficp_rhs_ext_fwd_eta(
         x.data_ptr(), mx.data_ptr(), q.data_ptr(), p.data_ptr(), mq.data_ptr(),
         vx.data_ptr(), dc.data_ptr(), nb, n, m, d, 1.0 / (sigma * sigma),
-        int(bool(withlogdet)), stream)
-    _raise_on(err, "rhs_ext_fwd")
-    launches["rhs_ext_fwd"] += 1
+        int(bool(withlogdet)), float(eta), int(bool(use_eta)), stream)
+    name = "rhs_ext_fwd_eta" if use_eta else "rhs_ext_fwd"
+    _raise_on(err, name)
+    launches[name] += 1
     return vx, dc
 
 
@@ -301,19 +343,22 @@ def rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, withlogdet):
 # ---------------------------------------------------------------------------
 
 class RHSExt(torch.autograd.Function):
-    """(vq, -Gq, dcost, vx) = fused ext RHS at eta = 0 (the contract of the
-    JAX package's ``make_rhs_ext``).  Forward: the self kernel on the support
-    with logdet off, and the ext forward kernel.  Backward: the self backward
+    """(vq, -Gq, dcost, vx) = fused ext RHS (the contract of the JAX package's
+    ``make_rhs_ext``).  At eta = 0, forward: the self kernel on the support
+    with logdet off, and the ext forward kernel; backward: the self backward
     kernel with a zero dcost cotangent for the support-support terms, and the
-    dx and dq/dp kernels for the cross terms, summed."""
+    dx and dq/dp kernels for the cross terms, summed.  At eta != 0 the routes
+    of the module docstring, on coordinates shifted by one centroid."""
 
     @staticmethod
-    def forward(ctx, q, p, x, mq, mx, sigma, withlogdet):
+    def forward(ctx, q, p, x, mq, mx, sigma, withlogdet, eta=0.0):
         q, p, x, mq, mx = (t.contiguous() for t in (q, p, x, mq, mx))
+        ctx.save_for_backward(q, p, x, mq, mx)
+        ctx.sigma, ctx.withlogdet, ctx.eta = sigma, withlogdet, eta
+        if eta != 0.0:
+            return _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta)
         v, w, _ = rhs_self.rhs_self_fwd(q, p, mq, sigma, False)
         vx, dc = rhs_ext_fwd(x, mx, q, p, mq, sigma, withlogdet)
-        ctx.save_for_backward(q, p, x, mq, mx)
-        ctx.sigma, ctx.withlogdet = sigma, withlogdet
         return v, w, dc.sum(-1), vx
 
     @staticmethod
@@ -325,25 +370,88 @@ class RHSExt(torch.autograd.Function):
         gx = torch.zeros_like(x) if gx is None else gx.contiguous()
         zero_c = torch.zeros(q.shape[:-2], dtype=q.dtype, device=q.device)
         gc = zero_c if gc is None else gc.contiguous()
+        if ctx.eta != 0.0:
+            from difficp_torch.ops import ksum, pair_poly
+
+            c = ksum.mm_center(q, mq)
+            qc, xc = q - c, x - c
+            # the self terms carry no logdet cost here (dc lives at x): gc = 0
+            dq1, dp1 = pair_poly.rhs_self_bwd_poly(qc, p, mq, gv, gw, zero_c, sigma,
+                                                   ctx.eta)
+            dq2, dp2, dx = pair_poly.rhs_ext_bwd_poly(
+                qc, p, xc, mq, mx, gx, gc if wl else zero_c, sigma, ctx.eta)
+            return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None
         dq1, dp1 = rhs_self.rhs_self_bwd(q, p, mq, gv, gw, zero_c, sigma, False)
         dx = rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, wl)
         dq2, dp2 = rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, wl)
-        return dq1 + dq2, dp1 + dp2, dx, None, None, None, None
+        return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None
 
 
-def lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q=None, mask_x=None):
+def _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta):
+    """The forward of ``RHSExt`` at eta != 0 (``make_rhs_ext``'s routes)."""
+    from difficp_torch.ops import ksum, pair_poly
+
+    c = ksum.mm_center(q, mq)
+    qc = q - c
+    v, w, _ = rhs_self.rhs_self_fwd(q, p, mq, sigma, False, eta)
+    if x.shape[-2] >= rhs_self._POLY_FWD_MIN_M:
+        vx, dc = pair_poly.rhs_ext_fwd_poly(qc, p, x - c, mq, mx, sigma, eta,
+                                            withlogdet)
+    else:
+        vx, dcr = rhs_ext_fwd((x - c).contiguous(), mx, qc.contiguous(), p, mq,
+                              sigma, withlogdet, eta)
+        dc = dcr.sum(-1)
+    return v, w, dc, vx
+
+
+def lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q=None, mask_x=None, eta=0.0):
     """Kernel-route fused ext RHS: (vq, -Gq, dcost, vx) with autograd."""
     mq = _ones_mask(q) if mask_q is None else mask_q
     mx = _ones_mask(x) if mask_x is None else mask_x
-    return RHSExt.apply(q, p, x, mq, mx, float(sigma), bool(withlogdet))
+    return RHSExt.apply(q, p, x, mq, mx, float(sigma), bool(withlogdet), float(eta))
 
 
-def v_field(x, q, p, sigma, mask_q=None):
-    """v(x_i) = sum_j mq_j k(x_i - q_j) p_j at eta = 0: the forward kernel
-    with logdet off and an all-ones data mask (the function of the JAX
-    package's ``pallas_ksum.make_v_field``).  Not differentiated: its callers
-    (momentum projection, ``lddmm.v``) need values only."""
+class VField(torch.autograd.Function):
+    """v(x_i) = sum_j mq_j [k(x_i - q_j) p_j + eta u k (x_i - q_j)] at eta !=
+    0, the JAX package's ``make_v_field``: forward, the ETA instance of the
+    forward kernel on centered coordinates with logdet off and an all-ones
+    data mask; backward, the generated ext backward with a zero dcost
+    cotangent (where the JAX package takes a blockwise VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, q, p, mq, sigma, eta):
+        from difficp_torch.ops import ksum
+
+        x, q, p, mq = (t.contiguous() for t in (x, q, p, mq))
+        ctx.save_for_backward(x, q, p, mq)
+        ctx.sigma, ctx.eta = sigma, eta
+        c = ksum.mm_center(q, mq)
+        vx, _ = rhs_ext_fwd((x - c).contiguous(), _ones_mask(x), (q - c).contiguous(),
+                            p, mq, sigma, False, eta)
+        return vx
+
+    @staticmethod
+    def backward(ctx, g):
+        from difficp_torch.ops import ksum, pair_poly
+
+        x, q, p, mq = ctx.saved_tensors
+        c = ksum.mm_center(q, mq)
+        zero_c = torch.zeros(q.shape[:-2], dtype=q.dtype, device=q.device)
+        dq, dp, dx = pair_poly.rhs_ext_bwd_poly(q - c, p, x - c, mq, _ones_mask(x),
+                                                g.contiguous(), zero_c, ctx.sigma, ctx.eta)
+        return dx, dq, dp, None, None, None
+
+
+def v_field(x, q, p, sigma, mask_q=None, eta=0.0):
+    """v(x_i) = sum_j mq_j k(x_i - q_j) p_j (+ the gradcomponent term at eta
+    != 0).  At eta = 0 the forward kernel with logdet off and an all-ones
+    data mask (the function of the JAX package's
+    ``pallas_ksum.make_v_field``), not differentiated: its callers (momentum
+    projection, ``lddmm.v``) need values only.  At eta != 0 ``VField``, with
+    its VJP."""
     mq = _ones_mask(q) if mask_q is None else mask_q.contiguous()
+    if eta != 0.0:
+        return VField.apply(x, q, p, mq, float(sigma), float(eta))
     x = x.contiguous()
     vx, _ = rhs_ext_fwd(x, _ones_mask(x), q.contiguous(), p.contiguous(), mq,
                         float(sigma), False)

@@ -1,4 +1,4 @@
-"""Fused LDDMM self right-hand side for eta = 0, with hand-written CUDA kernels.
+"""Fused LDDMM self right-hand side, with hand-written CUDA kernels.
 
 With u = 1/sigma^2, k_ij = exp(-u |q_i - q_j|^2 / 2), d_ij = q_i - q_j and the
 mask m, the op returns per frame (the contract of
@@ -8,13 +8,27 @@ mask m, the op returns per frame (the contract of
     w_i   = u m_i sum_j m_j k_ij (p_i.p_j) d_ij          (the returned -Gq)
     dcost = -u sum_i m_i sum_j m_j k_ij (p_i.d_ij)       (0 without logdet)
 
-Two kernels in ``csrc/rhs_self.cu`` compute it on the card: ``rhs_self_fwd``
-(v, w and per-row dcost partials) and ``rhs_self_bwd`` (the VJP, dq and dp).
-They replace the TPU kernels of ``difficp_tpu/ops/pallas_reductions.py``
-(forward: ``_rhs_self_sym_mm_kernel``, ``_rhs_self_sym_pair_kernel``
-mode="fwd", ``_rhs_self_mm_kernel``; backward: ``_rhs_self_bwd_mm_kernel``,
-``_rhs_self_sym_pair_kernel`` mode="bwd").  What bounds them and how their
-design answers it is noted in the source.
+and with the gradcomponent field (eta != 0) the terms of ``csrc/rhs_self.cu``'s
+header besides.  Two kernels in ``csrc/rhs_self.cu`` compute it on the card:
+``rhs_self_fwd`` (v, w and per-row dcost partials; any eta, eta a template
+switch) and ``rhs_self_bwd`` (the VJP at eta = 0, dq and dp).  They replace
+the TPU kernels of ``difficp_tpu/ops/pallas_reductions.py`` (forward:
+``_rhs_self_sym_mm_kernel``, ``_rhs_self_sym_pair_kernel`` mode="fwd",
+``_rhs_self_mm_kernel``, and at any eta ``_rhs_self_kernel``; backward:
+``_rhs_self_bwd_mm_kernel``, ``_rhs_self_sym_pair_kernel`` mode="bwd").  What
+bounds them and how their design answers it is noted in the source.
+
+At eta != 0 ``RHSSelf``'s backward is the generated one of
+``ops/pair_poly.py`` (generic kernel-sums), as in the JAX package's
+``make_rhs_self``; its forward is the any-eta kernel at every size, where the
+JAX package takes the generated forward from ``_POLY_FWD_MIN_M`` points on.
+That forward's float32 monomial expansion loses the near-cancelling (v, -Gq)
+of a start from v2p's zero-speed momenta (relative errors of 1e-3 at 1,024
+spiral points and 0.3 at 2,048, against 4e-5 and 2e-2 for the direct sum), and
+fed back through the shoot those errors diverge: the JAX routing turns the
+dense eta registration at 32,768 points into NaN on the card.  The ext
+forward's errors do not feed back (the data do not move the support), so
+``rhs_ext`` keeps the JAX routing.
 
 Beside each kernel is its plain PyTorch version (``rhs_self_fwd_reference``,
 ``rhs_self_bwd_reference``), chunked over rows so memory stays O(chunk M).  A
@@ -33,8 +47,15 @@ import torch
 
 from difficp_torch.ops import _build
 
-# kernel launches since the last reset (reset by assigning 0)
-launches = {"rhs_self_fwd": 0, "rhs_self_bwd": 0}
+# kernel launches since the last reset (reset by assigning 0); the any-eta
+# instance of the forward kernel counts apart
+launches = {"rhs_self_fwd": 0, "rhs_self_bwd": 0, "rhs_self_fwd_eta": 0}
+
+# eta != 0 ext forwards switch from the any-eta kernel to the generated
+# kernel-sum forward (pair_poly) at this many data points a frame (the JAX
+# package's pallas_reductions._POLY_FWD_MIN_M, which there gates the self
+# forward too; see the module docstring)
+_POLY_FWD_MIN_M = 32768
 
 _bound = False
 
@@ -82,6 +103,26 @@ def bwd_ops_per_unordered_pair(d: int) -> int:
     return 34 * d + 3
 
 
+def fwd_eta_ops_per_unordered_pair(d: int, withlogdet: bool) -> int:
+    """The least FP32 work of the any-eta forward per unordered pair, counted
+    as ``fwd_ops_per_unordered_pair`` counts it, with k~ = m_i m_j k, c = p_i
+    - p_j, the sums s0 = sum k~ and the eta factors applied per row
+    (sum_j k~ c = p_i s0 - v_i):
+
+        the eta = 0 terms                           15d + 2  (12d + 1 without
+                                                    the dcost line)
+        without logdet: c, c.d, t = k~ (c.d)        3d
+        g = k~ d;  a_i += g,  a_j -= g              3d
+        s0_i += k~,  s0_j += k~                     2
+        t d;  b_i += t d,  b_j -= t d               3d
+        h = (k~ r2) d;  e_i += h,  e_j -= h         3d + 1
+        dcost: sum k~ r2, sum k~                    2        (logdet only)
+
+    which makes 24d + 7 with logdet and 24d + 4 without.
+    """
+    return 24 * d + (7 if withlogdet else 4)
+
+
 def _ones_mask(q):
     return torch.ones(q.shape[:-1], dtype=q.dtype, device=q.device)
 
@@ -101,25 +142,36 @@ def _pair_block(q, m, lo, hi, u):
     return d, k
 
 
-def rhs_self_fwd_reference(q, p, m, sigma, withlogdet):
-    """Plain version of the forward kernel: (v, w, per-row dcost partials)."""
+def rhs_self_fwd_reference(q, p, m, sigma, withlogdet, eta=0.0):
+    """Plain version of the forward kernel: (v, w, per-row dcost partials),
+    with the gradcomponent terms when eta != 0."""
     u = 1.0 / (sigma * sigma)
-    mm = q.shape[-2]
-    chunk = _chunk_rows(mm, q.shape[-1])
+    mm, dim = q.shape[-2], q.shape[-1]
+    chunk = _chunk_rows(mm, 2 * dim)
     vs, ws, dcs = [], [], []
     for lo in range(0, mm, chunk):
         hi = min(lo + chunk, mm)
         d, k = _pair_block(q, m, lo, hi, u)
         pi = p[..., lo:hi, :]
         mi = m[..., lo:hi, None]
-        vs.append(mi * (k @ p))
+        v = k @ p
         kpp = k * (pi @ p.transpose(-1, -2))
-        ws.append(u * mi * (kpp[..., None] * d).sum(-2))
-        if withlogdet:
-            pd = (pi[..., None, :] * d).sum(-1)
-            dcs.append(-u * m[..., lo:hi] * (k * pd).sum(-1))
-        else:
-            dcs.append(torch.zeros_like(m[..., lo:hi]))
+        w = u * (kpp[..., None] * d).sum(-2)
+        pd = (pi[..., None, :] * d).sum(-1)
+        dc = -u * (k * pd).sum(-1)
+        if eta != 0.0:
+            r2 = (d * d).sum(-1)
+            c = pi[..., None, :] - p[..., None, :, :]
+            kdc = k * (d * c).sum(-1)
+            lap = k * (u * r2 - (dim + 2))
+            v = v + eta * u * (k[..., None] * d).sum(-2)
+            w = w + eta * (u * u * (kdc[..., None] * d).sum(-2)
+                           - u * (k[..., None] * c).sum(-2)
+                           - eta * u * u * (lap[..., None] * d).sum(-2))
+            dc = dc + eta * u * (k * (u * r2 - dim)).sum(-1)
+        vs.append(mi * v)
+        ws.append(mi * w)
+        dcs.append(m[..., lo:hi] * dc if withlogdet else torch.zeros_like(m[..., lo:hi]))
     return torch.cat(vs, -2), torch.cat(ws, -2), torch.cat(dcs, -1)
 
 
@@ -164,6 +216,8 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.difficp_rhs_self_fwd.argtypes = [vp] * 6 + [ci, ci, ci, cf, ci, vp]
         lib.difficp_rhs_self_fwd.restype = ci
+        lib.difficp_rhs_self_fwd_eta.argtypes = [vp] * 6 + [ci, ci, ci, cf, ci, cf, ci, vp]
+        lib.difficp_rhs_self_fwd_eta.restype = ci
         lib.difficp_rhs_self_bwd.argtypes = [vp] * 8 + [ci, ci, ci, cf, ci, vp]
         lib.difficp_rhs_self_bwd.restype = ci
         _bound = True
@@ -195,11 +249,18 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def rhs_self_fwd(q, p, m, sigma, withlogdet):
-    """(v, w, per-row dcost partials).  CPU tensors take the plain version;
-    CUDA tensors launch the forward kernel."""
+def rhs_self_fwd(q, p, m, sigma, withlogdet, eta=0.0):
+    """(v, w, per-row dcost partials), with the gradcomponent terms when eta
+    != 0.  CPU tensors take the plain version; CUDA tensors launch the
+    forward kernel (its ETA instance when eta != 0)."""
     if q.device.type == "cpu":
-        return rhs_self_fwd_reference(q, p, m, sigma, withlogdet)
+        return rhs_self_fwd_reference(q, p, m, sigma, withlogdet, eta)
+    return launch_fwd(q, p, m, sigma, withlogdet, eta, eta != 0.0)
+
+
+def launch_fwd(q, p, m, sigma, withlogdet, eta, use_eta):
+    """One launch of the forward kernel on CUDA tensors: the ETA instance
+    when ``use_eta`` (at any eta, 0 included), else the eta = 0 instance."""
     if q.device.type != "cuda":
         raise ValueError(f"rhs_self_fwd: unsupported device {q.device}")
     nb, mm, d = _frames(q)
@@ -210,12 +271,13 @@ def rhs_self_fwd(q, p, m, sigma, withlogdet):
     w = torch.empty_like(q)
     dc = torch.empty_like(m)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().difficp_rhs_self_fwd(
+    err = _lib().difficp_rhs_self_fwd_eta(
         q.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), w.data_ptr(),
         dc.data_ptr(), nb, mm, d, 1.0 / (sigma * sigma), int(bool(withlogdet)),
-        stream)
-    _raise_on(err, "rhs_self_fwd")
-    launches["rhs_self_fwd"] += 1
+        float(eta), int(bool(use_eta)), stream)
+    name = "rhs_self_fwd_eta" if use_eta else "rhs_self_fwd"
+    _raise_on(err, name)
+    launches[name] += 1
     return v, w, dc
 
 
@@ -249,15 +311,18 @@ def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet):
 # ---------------------------------------------------------------------------
 
 class RHSSelf(torch.autograd.Function):
-    """(v, w, dcost) = fused self RHS at eta = 0; the backward recomputes k
-    in the backward kernel from the saved q, p and m."""
+    """(v, w, dcost) = fused self RHS.  At eta = 0 the backward recomputes k
+    in the backward kernel from the saved q, p and m.  At eta != 0 the
+    forward is the any-eta kernel and the backward the generated kernel-sums
+    on centered coordinates (the module docstring says why the forward does
+    not take the generated route)."""
 
     @staticmethod
-    def forward(ctx, q, p, m, sigma, withlogdet):
+    def forward(ctx, q, p, m, sigma, withlogdet, eta=0.0):
         q, p, m = q.contiguous(), p.contiguous(), m.contiguous()
-        v, w, dc = rhs_self_fwd(q, p, m, sigma, withlogdet)
         ctx.save_for_backward(q, p, m)
-        ctx.sigma, ctx.withlogdet = sigma, withlogdet
+        ctx.sigma, ctx.withlogdet, ctx.eta = sigma, withlogdet, eta
+        v, w, dc = rhs_self_fwd(q, p, m, sigma, withlogdet, eta)
         return v, w, dc.sum(-1)
 
     @staticmethod
@@ -266,9 +331,16 @@ class RHSSelf(torch.autograd.Function):
         gv = torch.zeros_like(q) if gv is None else gv.contiguous()
         gw = torch.zeros_like(q) if gw is None else gw.contiguous()
         gc = (torch.zeros(q.shape[:-2], dtype=q.dtype, device=q.device)
-              if gc is None else gc.contiguous())
-        dq, dp = rhs_self_bwd(q, p, m, gv, gw, gc, ctx.sigma, ctx.withlogdet)
-        return dq, dp, None, None, None
+              if gc is None or not ctx.withlogdet else gc.contiguous())
+        if ctx.eta != 0.0:
+            from difficp_torch.ops import ksum, pair_poly
+
+            qc = q - ksum.mm_center(q, m)
+            dq, dp = pair_poly.rhs_self_bwd_poly(qc, p, m, gv, gw, gc, ctx.sigma,
+                                                 ctx.eta)
+        else:
+            dq, dp = rhs_self_bwd(q, p, m, gv, gw, gc, ctx.sigma, ctx.withlogdet)
+        return dq, dp, None, None, None, None
 
 
 class Hamiltonian(torch.autograd.Function):
@@ -291,13 +363,50 @@ class Hamiltonian(torch.autograd.Function):
         return -g * w, g * v, None, None
 
 
-def lddmm_rhs_self(q, p, sigma, withlogdet, mask_q=None):
+class HamiltonianEta(torch.autograd.Function):
+    """H(q, p) with the gradcomponent terms (reference LDDMM.py:142-159), per
+    frame, as the JAX package's ``make_hamiltonian`` at eta != 0: the value
+    is one generic kernel-sum over the columns [1 | qc | p | |qc|^2]
+    (centered coordinates); the gradient is (Gq, v(q)) = (-w, v) from one
+    launch of the any-eta forward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, p, m, sigma, eta):
+        from difficp_torch.ops import ksum
+
+        q, p, m = q.contiguous(), p.contiguous(), m.contiguous()
+        ctx.save_for_backward(q, p, m)
+        ctx.sigma, ctx.eta = sigma, eta
+        d = q.shape[-1]
+        u = 1.0 / (sigma * sigma)
+        qc = q - ksum.mm_center(q, m)
+        q2 = (qc * qc).sum(-1, keepdim=True)
+        cols = torch.cat([torch.ones_like(q2), qc, p, q2], -1)
+        a = ksum.pairwise_ksum(qc, qc, cols, sigma, m)
+        a1, aq, ap, aqq = a[..., 0], a[..., 1:1 + d], a[..., 1 + d:1 + 2 * d], a[..., 1 + 2 * d]
+        h = 0.5 * (p * ap).sum(-1)
+        h = h + eta * u * ((p * qc).sum(-1) * a1 - (p * aq).sum(-1))
+        lap = u * (q2[..., 0] * a1 - 2.0 * (qc * aq).sum(-1) + aqq) - d * a1
+        h = h - 0.5 * eta * eta * u * lap
+        return (m * h).sum(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, p, m = ctx.saved_tensors
+        v, w, _ = rhs_self_fwd(q, p, m, ctx.sigma, False, ctx.eta)
+        g = g[..., None, None]
+        return -g * w, g * v, None, None, None
+
+
+def lddmm_rhs_self(q, p, sigma, withlogdet, mask_q=None, eta=0.0):
     """Kernel-route fused RHS: (vq, -Gq, dcost) with autograd."""
     m = _ones_mask(q) if mask_q is None else mask_q
-    return RHSSelf.apply(q, p, m, float(sigma), bool(withlogdet))
+    return RHSSelf.apply(q, p, m, float(sigma), bool(withlogdet), float(eta))
 
 
-def hamiltonian(q, p, sigma, mask_q=None):
-    """Kernel-route Hamiltonian at eta = 0, with autograd."""
+def hamiltonian(q, p, sigma, mask_q=None, eta=0.0):
+    """Kernel-route Hamiltonian, with autograd."""
     m = _ones_mask(q) if mask_q is None else mask_q
+    if eta != 0.0:
+        return HamiltonianEta.apply(q, p, m, float(sigma), float(eta))
     return Hamiltonian.apply(q, p, m, float(sigma))

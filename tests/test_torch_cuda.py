@@ -1,5 +1,5 @@
 """The CUDA kernels of difficp_torch/csrc/ (rhs_self.cu, rhs_ext.cu,
-kmin2.cu) on the card, against their plain PyTorch versions.
+kmin2.cu, ksum.cu) on the card, against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has a card and no JAX.  From the repository root there:
@@ -122,9 +122,9 @@ def test_launch_counters(cuda):
         RS.launches[key] = 0
     v, w, dcost = RS.RHSSelf.apply(q, p, m, SIG, True)
     torch.autograd.grad(v.sum() + w.sum() + dcost.sum(), (q, p))
-    assert RS.launches == {"rhs_self_fwd": 1, "rhs_self_bwd": 1}
+    assert RS.launches == {"rhs_self_fwd": 1, "rhs_self_bwd": 1, "rhs_self_fwd_eta": 0}
     torch.autograd.grad(RS.Hamiltonian.apply(q, p, m, SIG).sum(), (q, p))
-    assert RS.launches == {"rhs_self_fwd": 2, "rhs_self_bwd": 1}
+    assert RS.launches == {"rhs_self_fwd": 2, "rhs_self_bwd": 1, "rhs_self_fwd_eta": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -275,8 +275,10 @@ def test_ext_launch_counters(cuda):
         backend.check_coverage(traj.x, traj.q, SIG, 2.0, mx, mq)
     finally:
         backend.set_backend(None)
-    assert RS.launches == {"rhs_self_fwd": 4 + 1 + 4, "rhs_self_bwd": 4}
-    assert RE.launches == {"rhs_ext_fwd": 8, "rhs_ext_bwd_dx": 4, "rhs_ext_bwd_dqdp": 4}
+    assert RS.launches == {"rhs_self_fwd": 4 + 1 + 4, "rhs_self_bwd": 4,
+                           "rhs_self_fwd_eta": 0}
+    assert RE.launches == {"rhs_ext_fwd": 8, "rhs_ext_bwd_dx": 4, "rhs_ext_bwd_dqdp": 4,
+                           "rhs_ext_fwd_eta": 0}
     assert K2.launches == {"kmin2": 1}
 
 
@@ -326,3 +328,137 @@ def test_ext_shoot_kernel_route_matches_dense_on_card(cuda, scheme):
         backend.set_backend(None)
     for got, ref in zip(res["kernel"], res["dense"]):
         _close(got.detach(), ref.detach(), TOL_BWD)
+
+
+# ---------------------------------------------------------------------------
+# the gradcomponent (eta != 0) slice: the generic kernel-sum and the ETA
+# instances of the forward kernels
+# ---------------------------------------------------------------------------
+
+ETA = 0.07
+
+
+def _ksum_inputs(b, nx, ny, d, ncols, seed, device, shared=False):
+    """Rows and columns in a unit box, a ragged column mask, a table of
+    ncols payload columns (per frame, or shared with shared=True)."""
+    rng = np.random.default_rng(seed)
+    yb = () if shared else (b,)
+    x = rng.uniform(size=(b, nx, d))
+    y = rng.uniform(size=(*yb, ny, d))
+    my = (rng.uniform(size=(*yb, ny)) > 0.1).astype(np.float64)
+    t = rng.normal(size=(*yb, ncols, ny))
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in (x, y, my, t)]
+
+
+@pytest.mark.parametrize("d,ncols", [(2, 3), (2, 6), (2, 9), (2, 20), (2, 121), (3, 333)])
+def test_ksum_matches_plain(cuda, d, ncols):
+    """The generic kernel-sum against its plain version in float64 on the
+    same float32 inputs: two frames of 1,001 rows against 1,503 masked
+    columns, at every table width the eta model sends (several column
+    chunks from 40 columns on), relative to the largest |plain| output."""
+    from difficp_torch.ops import ksum as KS
+
+    x, y, my, t = _ksum_inputs(2, 1001, 1503, d, ncols, seed=ncols, device=cuda)
+    got = KS.ksum(x, y, t, my, SIG)
+    torch.cuda.synchronize()
+    ref = KS.ksum_reference(x.double(), y.double(), t.double(), my.double(), SIG)
+    assert got.shape == (2, ncols, 1001)
+    _close(got, ref, TOL_FWD)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_ksum_split_and_shared_y(cuda, shared):
+    """A short x side against a long y side splits the y axis over the grid
+    (partials summed in the wrapper); a y without a frame axis serves every
+    frame; no mask means all ones."""
+    from difficp_torch.ops import ksum as KS
+
+    x, y, _, t = _ksum_inputs(3, 300, 20000, 2, 20, seed=4, device=cuda, shared=shared)
+    assert KS.splitting(3, 300, 20000, 20) < 20000
+    got = KS.ksum(x, y, t, None, SIG)
+    torch.cuda.synchronize()
+    ref = KS.ksum_reference(x.double(), y.double(), t.double(), None, SIG)
+    _close(got, ref, TOL_FWD)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("withlogdet", [True, False])
+def test_eta_forward_kernels_match_plain(cuda, d, withlogdet):
+    """The ETA instances of the self and ext forward kernels against their
+    plain versions in float64 (M = 3,001; N = 5,003 on M = 301, two
+    frames)."""
+    from difficp_torch.ops import rhs_ext as RE
+
+    q, p, m, *_ = _inputs(2, 3001, d, seed=d, device=cuda)
+    v, w, dc = RS.rhs_self_fwd(q, p, m, SIG, withlogdet, ETA)
+    x, mx, qs, ps, mq, *_ = _ext_inputs(2, 5003, 301, d, seed=d, device=cuda)
+    vx, dcx = RE.rhs_ext_fwd(x, mx, qs, ps, mq, SIG, withlogdet, ETA)
+    torch.cuda.synchronize()
+    rv, rw, rdc = RS.rhs_self_fwd_reference(q.double(), p.double(), m.double(), SIG,
+                                            withlogdet, ETA)
+    rvx, rdcx = RE.rhs_ext_fwd_reference(*(t.double() for t in (x, mx, qs, ps, mq)), SIG,
+                                         withlogdet, ETA)
+    for got, ref in ((v, rv), (w, rw), (vx, rvx)):
+        _close(got, ref, TOL_FWD)
+    for got, ref in ((dc, rdc), (dcx, rdcx)):
+        assert float((got.double().sum(-1) - ref.sum(-1)).abs().max()) <= TOL_FWD * float(
+            ref.abs().sum(-1).max())
+
+
+def test_eta_instances_at_eta_zero_are_bit_identical(cuda):
+    """The ETA instance at eta = 0 gives the eta = 0 instance's outputs bit
+    for bit (it adds the gradcomponent sums apart and combines them at the
+    end), for the self and the ext forward kernels."""
+    from difficp_torch.ops import rhs_ext as RE
+
+    q, p, m, *_ = _inputs(2, 2000, 2, seed=9, device=cuda)
+    x, mx, qs, ps, mq, *_ = _ext_inputs(2, 3000, 200, 2, seed=9, device=cuda)
+    for wl in (True, False):
+        a = RS.launch_fwd(q, p, m, SIG, wl, 0.0, False)
+        b = RS.launch_fwd(q, p, m, SIG, wl, 0.0, True)
+        c = RE.launch_fwd(x, mx, qs, ps, mq, SIG, wl, 0.0, False)
+        e = RE.launch_fwd(x, mx, qs, ps, mq, SIG, wl, 0.0, True)
+        for u, v in zip(a + c, b + e):
+            assert torch.equal(u, v)
+
+
+def test_eta_shoot_on_card_matches_dense_and_counts_launches(cuda):
+    """Shooting with external points at eta != 0 and its gradient on the
+    card: the kernel route (the ETA forward kernels, the generated backward
+    on ksum) against the dense route, N = 700, M = 60, nt = 4, logdet at
+    lambda = 200 (eta = 1/200); and
+    one count per launch: per step one ETA self and one ETA ext forward and
+    three kernel-sums (self backward, dx, dq/dp); the Hamiltonian adds one
+    kernel-sum (its value) and one ETA self forward (its gradient)."""
+    from difficp_torch.ops import ksum as KS
+    from difficp_torch.ops import rhs_ext as RE
+
+    x, mx, q, p0, mq, *_ = _ext_inputs(2, 700, 60, 2, seed=5, device=cuda)
+    cfg = lddmm.make_config(sigma=SIG, lambd=200.0, version="logdet", nt=4,
+                            scheme="Euler")
+    res = {}
+    try:
+        for mode in ("kernel", "dense"):
+            backend.set_backend(mode)
+            for counts in (RS.launches, RE.launches, KS.launches):
+                for key in counts:
+                    counts[key] = 0
+            p = p0.clone().requires_grad_(True)
+            final, _ = lddmm.shoot(cfg, q, p, x, mq, mx)
+            loss = (lddmm.trajloss(cfg, q, p, final.cost, mq).sum()
+                    + (final.x ** 2).sum())
+            res[mode] = (final.q, final.p, final.x, final.cost, loss,
+                         torch.autograd.grad(loss, p)[0])
+            if mode == "kernel":
+                launches = {**RS.launches, **RE.launches, **KS.launches}
+    finally:
+        backend.set_backend(None)
+    for got, ref in zip(res["kernel"][:5], res["dense"][:5]):
+        _close(got.detach(), ref.detach(), TOL_BWD)
+    # the generated backward expands delta powers into raw monomials: the
+    # JAX package's bound for it (tests/test_pair_poly.py), 1e-2
+    _close(res["kernel"][5], res["dense"][5], 1e-2)
+    assert launches == {"rhs_self_fwd": 0, "rhs_self_bwd": 0, "rhs_self_fwd_eta": 4 + 1,
+                        "rhs_ext_fwd": 0, "rhs_ext_bwd_dx": 0, "rhs_ext_bwd_dqdp": 0,
+                        "rhs_ext_fwd_eta": 4, "ksum": 3 * 4 + 1}
+

@@ -202,13 +202,17 @@ def test_seed_alpha_and_quad_dataloss_match_jax():
 
 
 def test_external_points_not_ported():
-    """External points are ported at eta = 0; with the gradcomponent field
-    (eta != 0) the kernel route still raises, naming its later slice."""
+    """External points with the gradcomponent field (eta != 0) are ported
+    now: a shoot on the kernel route (the any-eta kernels' plain versions)
+    equals the dense route's, rtol 1e-5."""
     cfg = tl.make_config(sigma=0.5, lambd=2.0, gradcomponent=True, withlogdet=True,
                          nt=2, scheme="Euler")
+    dense, _ = tl.shoot(cfg, _t(Q0), _t(P0), _t(Q0))
     TB.set_backend("kernel")
     try:
-        with pytest.raises(NotImplementedError, match="eta != 0"):
-            tl.shoot(cfg, _t(Q0), _t(P0), _t(Q0))
+        kern, _ = tl.shoot(cfg, _t(Q0), _t(P0), _t(Q0))
     finally:
         TB.set_backend(None)
+    for a, b in zip(kern, dense):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))

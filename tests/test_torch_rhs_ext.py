@@ -240,8 +240,9 @@ def test_dense_reductions_match_jax_any_eta():
 
 def test_backend_routes_for_external_points():
     """Dense at or under the pair limit (on m (m + n) pairs for the ext RHS),
-    the kernel route when forced: the same values; v_field and kred(q, q)
-    through the kernels' plain versions; what is not ported raises."""
+    the kernel route when forced: the same values, at eta = 0 and eta != 0;
+    v_field and kred(q, q) through the kernels' plain versions; kred between
+    two sets, which no path runs above the limit, raises."""
     x, q, p, mx, mq, *_ = _inputs(64, 20, 2, seed=2)
     xt, qt, pt, mxt, mqt = (t[None] for t in _t(x, q, p, mx, mq))
     try:
@@ -255,10 +256,15 @@ def test_backend_routes_for_external_points():
         _close(TB.v_field(xt, qt, pt, SIG, 0.0, mqt), v_dense, 1e-5)
         # the self kernel zeroes masked rows, which kred keeps
         _close(TB.kred(qt, qt, pt, SIG, mqt), mqt[..., None] * k_dense, 1e-5)
-        with pytest.raises(NotImplementedError, match="eta != 0"):
-            TB.lddmm_rhs_ext(qt, pt, xt, SIG, 0.2, True, mqt, mxt)
-        with pytest.raises(NotImplementedError, match="eta != 0"):
-            TB.v_field(xt, qt, pt, SIG, 0.2, mqt)
+        TB.set_backend("dense")
+        dense_eta = (TB.lddmm_rhs_ext(qt, pt, xt, SIG, 0.2, True, mqt, mxt),
+                     TB.v_field(xt, qt, pt, SIG, 0.2, mqt))
+        TB.set_backend("kernel")
+        kern_eta = (TB.lddmm_rhs_ext(qt, pt, xt, SIG, 0.2, True, mqt, mxt),
+                    TB.v_field(xt, qt, pt, SIG, 0.2, mqt))
+        for g, r in zip(kern_eta[0], dense_eta[0]):
+            _close(g, r, 1e-5)
+        _close(kern_eta[1], dense_eta[1], 1e-5)
         with pytest.raises(NotImplementedError, match="kernel op layer"):
             TB.kred(xt, qt, pt, SIG, mqt)
     finally:

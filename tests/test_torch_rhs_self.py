@@ -228,8 +228,9 @@ def test_dense_reductions_match_jax_any_eta():
 
 
 def test_backend_routes():
-    """Dense at or under the pair limit, the kernel Functions when forced,
-    NotImplementedError for routes that are not ported."""
+    """Dense at or under the pair limit, the kernel Functions when forced (at
+    eta = 0 and eta != 0), NotImplementedError for routes that are not
+    ported."""
     q, p, mask, *_ = _inputs(64, 2, seed=2)
     qt, pt, mt = _t(q, p, mask)
     try:
@@ -239,8 +240,9 @@ def test_backend_routes():
         assert kern[0].grad_fn is not None or not kern[0].requires_grad
         for x, r in zip(kern, dense):
             _close(x, r, 1e-5)
-        with pytest.raises(NotImplementedError):
-            TB.lddmm_rhs_self(qt, pt, SIG, 0.5, True, mt)
+        kern_eta = TB.lddmm_rhs_self(qt, pt, SIG, 0.5, True, mt)
+        for x, r in zip(kern_eta, TR.lddmm_rhs_self(qt, pt, SIG, 0.5, True, mt)):
+            _close(x, r, 1e-5)
         # kmin2 (its plain version here) takes the nearest-neighbour search
         np.testing.assert_allclose(TB.second_min_sqdist(qt, mt).numpy(),
                                    TR.second_min_sqdist(qt, mt).numpy(), rtol=1e-6)
