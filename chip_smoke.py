@@ -33,8 +33,9 @@ Phases, each printing JSON lines with its seconds:
                  kernel route and the dense route;
   9. api grid    icp_two_set and icp_atlas with default numerical options;
  10. profile     a torch.profiler trace of one outer iteration of the grid
-                 main path: device-busy share, top CUDA operations, launches,
-                 host time between launches;
+                 main path, cut to one L-BFGS step (reg_nmax = 1):
+                 device-busy share, top CUDA operations, launches, host time
+                 between launches;
  11. check eta   the gradcomponent (eta != 0) slice's kernels against their
                  plain versions in float64: the generic kernel-sum (ksum) at
                  3, 6, 9, 20 and 121 columns (d = 2) and 333 (d = 3), masked,
@@ -51,16 +52,18 @@ Phases, each printing JSON lines with its seconds:
                  "logdet" (eta = 1/200) at N = 8,192, driven as
                  run_large.main drives DiffPSR; before it, the stability of
                  its start (v2p's momenta for a zero field, one shoot) at
-                 8,192, 16,384 and 32,768 points, which sets that size;
+                 8,192, 16,384 and 32,768 points, in float32 on the kernels
+                 and in float64 on their plain versions, which sets that size;
  15. eta route agreement  the grid eta workload at 3 x 8,000 points through
                  the kernel route and the dense route (one outer
                  iteration and a stepwise Reg_opt); and the generated
                  backward's float32 error at the grid path's geometry against
                  float64 dense autograd (the poly-precision line);
- 16. api eta     icp_two_set and icp_atlas with gradcomponent_LDDMM=True;
+ 16. api eta     icp_two_set and icp_atlas with gradcomponent_LDDMM=True,
+                 one iteration each;
  17. profile eta a torch.profiler trace of one outer iteration of the grid
-                 eta path, cut to one L-BFGS step (reg_nmax = 1), with the
-                 host operators by their own CPU time.
+                 eta path, cut to 5 EM steps and one L-BFGS step of 4 inner
+                 iterations, with the host operators by their own CPU time.
 Each main path is driven with the launch counters set to 0 just before it
 and read just after.  Then the kernels line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure exits non-zero before
@@ -120,8 +123,9 @@ PR2_GRID_FE = [22501056.0, -1347914.25, -1391784.75, -1425462.25]
 # of run_large's configuration (lambda = 200)
 GRID_ETA = 1.0 / 500.0
 DENSE_ETA = 1.0 / 200.0
-# the dense eta path's size: its start shoot diverges from 16,384 points on
-# (phase dense_eta_start)
+# the dense eta path's size: the largest power of two at which its start shoot
+# stays bounded in float32 (phase dense_eta_start; from 16,384 points on it
+# diverges in float32, and at 32,768 in float64 too)
 DENSE_ETA_N = 8192
 # the generated backward expands delta powers into raw monomials; above this
 # error at the grid path's geometry it is logged as a fault inherited from the
@@ -201,11 +205,10 @@ def abs_err(x, ref):
     return float((x.double() - ref).abs().max())
 
 
-def monotone(fes, skip=()):
+def monotone(fes):
     """Each free energy at most the one before it, within the slack of the
-    FE oracle (psr.update_FE), except at the positions in ``skip``."""
-    return all(b <= a + 1e-4 * abs(a) + 1e-6
-               for i, (a, b) in enumerate(zip(fes, fes[1:])) if i + 1 not in skip)
+    FE oracle (psr.update_FE)."""
+    return all(b <= a + 1e-4 * abs(a) + 1e-6 for a, b in zip(fes, fes[1:]))
 
 
 def reset(*counters):
@@ -1002,13 +1005,15 @@ def ksum_bound(pairs, d, ncols, nbytes, self_pairs=False):
     return bound(pairs, ks.ops_per_pair(d, ncols), pairs, nbytes)
 
 
-def phase_timing_eta(rs, re, ks):
+def phase_timing_eta(rs, re, ks, pp):
     """Each eta kernel at the shapes the two eta paths give it: first held
     against its plain version in float64 on the same inputs, then timed with
     CUDA events (median of 15) beside its plain version and its bound.
     Grid eta path: 10 frames of 65,536 points on their grid support (M), d =
     2, sigma = 0.05, eta = 1/500.  Dense eta path: one frame of DENSE_ETA_N
-    spiral points, sigma = 0.1, eta = 1/200."""
+    spiral points, sigma = 0.1, eta = 1/200.  Besides, the generated self
+    forward's 20-column symmetric table at _SYM_MIN_M = 32,768 points, where
+    that route starts (no path here reaches it, PERF.md)."""
     import numpy as np
     import torch
     from difficp_torch.utils.point_sets import grid_support
@@ -1024,6 +1029,8 @@ def phase_timing_eta(rs, re, ks):
     mq = torch.ones((k, m), device="cuda")
     ones_x = torch.ones((k, n), device="cuda")
     qd, pd_, md, *_ = make_inputs(nd, d, False, seed=5)
+    # the generated self forward's symmetric table where that route starts
+    qs = make_inputs(pp._SYM_MIN_M, d, False, seed=6)[0]
 
     def table(ncols, cols):
         return torch.randn((cols.shape[0], ncols, cols.shape[1]), generator=g,
@@ -1037,6 +1044,7 @@ def phase_timing_eta(rs, re, ks):
         ("grid ext dq/dp", q, x, table(20, x), GRID_SIGMA, False),
         ("dense self backward", qd, qd, table(121, qd), SIGMA, True),
         ("dense Hamiltonian", qd, qd, table(6, qd), SIGMA, True),
+        ("dense symmetric self forward", qs, qs, table(20, qs), SIGMA, True),
     ]
     worst = {"ksum": [0.0, 0.0], "rhs_self_fwd_eta": [0.0, 0.0],
              "rhs_ext_fwd_eta": [0.0, 0.0]}
@@ -1177,7 +1185,6 @@ def phase_grid_eta_path(counters):
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     setup_counts = flat_counts(counters)
-    fe0 = psr.FE
     t1 = time.perf_counter()
     fes = psr.run(2, **GRID_RUN)
     torch.cuda.synchronize()
@@ -1187,12 +1194,15 @@ def phase_grid_eta_path(counters):
     torch.cuda.synchronize()
     reg_s = time.perf_counter() - t2
     flat = flat_counts(counters)
-    fe_seq = [fe0, *map(float, fes), psr.FE]
+    # run() records the start momenta's free energy first (its oracle compares
+    # the first iteration with it), then the iterations'
+    fe_seq = [*map(float, fes), psr.FE]
     # loss+grad evaluations: one any-eta self forward per step of each shoot;
-    # the coverage pass adds one shoot without a gradient
-    evals = (flat["rhs_self_fwd_eta"] - nt) / nt
+    # the start's shoot and the coverage pass add one shoot each without a
+    # gradient, with the generated ext forward (nt ksum) in each
+    evals = (flat["rhs_self_fwd_eta"] - 2 * nt) / nt
     per_eval = {"rhs_self_fwd_eta": nt, "ksum": 4 * nt}
-    expected_ksum = 4 * nt * evals + nt + setup_counts["ksum"]
+    expected_ksum = 4 * nt * evals + 2 * nt + setup_counts["ksum"]
     rec = {"phase": "grid_eta_path", "frames": k, "n_points": n,
            "grid_M": int(psr.q0.shape[1]), "sigma_lddmm": GRID_SIGMA, "eta": psr.lcfg.eta,
            "setup_seconds": setup, "run_seconds": run_s,
@@ -1206,9 +1216,7 @@ def phase_grid_eta_path(counters):
     emit(rec)
     if not all(flat[key] > 0 for key in ETA_KERNELS):
         fail("grid_eta_path", f"a kernel of the path never launched: {flat}")
-    # the first registration after the start momenta is not compared with the
-    # FE recorded before them, which omits their energy (as the oracle does)
-    if not (all(map(math.isfinite, fe_seq)) and monotone(fe_seq, skip=(1,))
+    if not (all(map(math.isfinite, fe_seq)) and monotone(fe_seq)
             and psr.fe_increase_events == 0):
         fail("grid_eta_path", "free energy not finite or not monotone")
     if not fe_seq[-1] < fe_seq[0]:
@@ -1218,14 +1226,58 @@ def phase_grid_eta_path(counters):
     return psr, flat
 
 
+def shoot_float64(rs, q, a, m, cfg, nt):
+    """An Euler shoot of nt steps from (q, a) in float64 through the self
+    forward's plain version: the largest |q1|, |p1| and the cost."""
+    qt, pt, cost = q.double(), a.double(), 0.0
+    for _ in range(nt):
+        v, w, dc = rs.rhs_self_fwd_reference(qt, pt, m.double(), cfg.sigma, cfg.withlogdet,
+                                             cfg.eta)
+        qt, pt, cost = qt + v / nt, pt + w / nt, cost + float(dc.sum()) / nt
+    return {"max_abs_q1": float(qt.abs().max()), "max_abs_p1": float(pt.abs().max()),
+            "cost": cost}
+
+
+def v2p_float64(ks, q, m, cfg, alpha=1e-4, tol=1e-6, maxiter=500):
+    """v2p's start momenta for a zero field in float64 on the card through the
+    kernel-sum's plain version: the right-hand side eta grad_kred(q, q), then
+    the CG ridge solve (K + alpha I) a0 = rhs with solvers.kridge_solve_cg's
+    stopping rule."""
+    import torch
+
+    u = 1.0 / (cfg.sigma * cfg.sigma)
+
+    def ksum(table):
+        return ks.ksum_reference(q, q, table.transpose(-1, -2).contiguous(), m,
+                                 cfg.sigma).transpose(-1, -2)
+
+    a = ksum(torch.cat([torch.ones_like(q[..., :1]), q], -1))
+    rhs = -cfg.eta * u * (q * a[..., :1] - a[..., 1:])
+    x, r = torch.zeros_like(rhs), rhs.clone()
+    d, rr = r.clone(), float((r * r).sum())
+    stop = tol * tol * float((rhs * rhs).sum())
+    for _ in range(maxiter):
+        if rr <= stop:
+            break
+        ad = ksum(d) + alpha * d
+        step = rr / float((d * ad).sum())
+        x, r = x + step * d, r - step * ad
+        rr_new = float((r * r).sum())
+        d, rr = r + (rr_new / rr) * d, rr_new
+    return x
+
+
 def phase_dense_eta_start(rs, pp, ks):
     """The dense eta path's start at 8,192, 16,384 and 32,768 spiral points:
     v2p's momenta for a zero field (the CG ridge solve above the pair
-    limit), one shoot from them on the kernel route (largest |q1|, |p1| and
-    the cost), and the self forward there, the generated one (the JAX
-    package's route from 32,768 points on) and the ETA kernel, against the
-    float64 plain version.  Fails if the path's own size does not stay
-    finite."""
+    limit) and one shoot from them on the kernel route (largest |q1|, |p1|
+    and the cost); the same in float64 through the plain versions (nt = 10,
+    and nt = 40 for a finer Euler step), and the float32 momenta shot in
+    float64; and the self forward at the start,
+    the generated one (the route from 32,768 points on) and the ETA kernel,
+    against the float64 plain version.  tests/eta_start_jax.py prints the
+    same readings for the JAX package.  Fails if the path's own size does
+    not stay bounded."""
     import numpy as np
     import torch
     from difficp_torch.examples.run_large import spiral_cloud
@@ -1245,18 +1297,27 @@ def phase_dense_eta_start(rs, pp, ks):
         gen_v, gen_gq, _ = pp.rhs_self_fwd_poly(q - ks.mm_center(q, m), a0, m, SIGMA,
                                                 cfg.eta, False)
         dv, dw, _ = rs.rhs_self_fwd(q, a0, m, SIGMA, False, cfg.eta)
+        a64 = v2p_float64(ks, q.double(), m.double(), cfg)
+        shoots64 = {nt: shoot_float64(rs, q, a64, m, cfg, nt) for nt in (10, 40)}
+        # the float32 start momenta shot in float64: the solve or the shoot
+        shoot64_of_a0 = shoot_float64(rs, q, a0, m, cfg, cfg.nt)
         torch.cuda.synchronize()
         q1, p1 = float(final.q.abs().max()), float(final.p.abs().max())
         stable = math.isfinite(q1) and q1 < 10.0
         emit({"phase": "dense_eta_start", "N": n, "max_abs_a0": float(a0.abs().max()),
               "max_abs_q1": q1, "max_abs_p1": p1, "cost": float(final.cost[0]),
               "stable": stable, "max_abs_v0": float(ref[0].abs().max()),
+              "float64": {"max_abs_a0": float(a64.abs().max()),
+                          "a0_float32_rel_diff": rel_err(a0, a64),
+                          "shoot_nt": shoots64,
+                          "shoot_of_float32_a0": shoot64_of_a0},
               "generated_fwd_rel_err": {"vq": rel_err(gen_v, ref[0]),
                                         "-Gq": rel_err(-gen_gq, ref[1])},
-              "direct_fwd_rel_err": {"vq": rel_err(dv, ref[0]), "-Gq": rel_err(dw, ref[1])}})
+              "direct_fwd_rel_err": {"vq": rel_err(dv, ref[0]), "-Gq": rel_err(dw, ref[1])},
+              "seconds": time.perf_counter() - t0})
         if n == DENSE_ETA_N and not stable:
             fail("dense_eta_start", f"the start shoot at N={n} does not stay bounded")
-        del q, m, a0, final, ref, gen_v, gen_gq, dv, dw
+        del q, m, a0, final, ref, gen_v, gen_gq, dv, dw, a64
         torch.cuda.empty_cache()
     emit({"phase": "dense_eta_start_done", "seconds": time.perf_counter() - t0})
 
@@ -1265,9 +1326,9 @@ def phase_dense_eta_path(counters, run_large):
     """examples/run_large.py's configuration with version "logdet" (eta =
     1/200), driven as run_large.main drives DiffPSR: N = DENSE_ETA_N (cut
     from the JAX example's 131,072: from 16,384 points on the start shoot
-    diverges), C = 64, sigma = 0.1, nt = 10 Euler, dense support, 2 outer
-    iterations of GMM_opt(10) + 2 x Reg_opt(nmax=1, carry_memory,
-    carry_value), line-search budget 25."""
+    diverges, phase dense_eta_start), C = 64, sigma = 0.1, nt = 10 Euler,
+    dense support, 2 outer iterations of GMM_opt(10) + 2 x Reg_opt(nmax=1,
+    carry_memory, carry_value), line-search budget 25."""
     import numpy as np
     import torch
     from difficp_torch.models import gmm, lddmm
@@ -1290,7 +1351,9 @@ def phase_dense_eta_path(counters, run_large):
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     setup_counts = flat_counts(counters)
-    fes, iters = [psr.FE], []
+    # the first GMM_opt records the start momenta's free energy first (the
+    # oracle compares the first step with it)
+    fes, iters = [], []
     for it in range(n_iter):
         t1 = time.perf_counter()
         psr.GMM_opt(max_iterations=10, tol=1e-3)
@@ -1303,9 +1366,10 @@ def phase_dense_eta_path(counters, run_large):
         iters.append(time.perf_counter() - t1)
     flat = flat_counts(counters)
     # each loss+grad: nt self forwards and the Hamiltonian's gradient on the
-    # any-eta kernel; nt generated backwards and the Hamiltonian's value on ksum
+    # any-eta kernel; nt generated backwards and the Hamiltonian's value on
+    # ksum.  The start's shoot adds nt self forwards and one Hamiltonian value.
     per_eval = {"rhs_self_fwd_eta": lcfg.nt + 1, "ksum": lcfg.nt + 1}
-    evals = flat["rhs_self_fwd_eta"] / per_eval["rhs_self_fwd_eta"]
+    evals = (flat["rhs_self_fwd_eta"] - lcfg.nt) / per_eval["rhs_self_fwd_eta"]
     rec = {"phase": "dense_eta_path", "n_points": n_points, "eta": lcfg.eta,
            "setup_seconds": setup, "seconds_per_outer_iteration": iters,
            "seconds": time.perf_counter() - t0, "FE_sequence": fes,
@@ -1313,13 +1377,11 @@ def phase_dense_eta_path(counters, run_large):
            "launches": flat, "loss_grad_evals": evals,
            "expected_per_loss_grad": per_eval,
            "ksum_launches_as_expected":
-               flat["ksum"] == per_eval["ksum"] * evals + setup_counts["ksum"]}
+               flat["ksum"] == per_eval["ksum"] * evals + 1 + setup_counts["ksum"]}
     emit(rec)
     if not all(flat[key] > 0 for key in ("ksum", "rhs_self_fwd_eta", "rhs_self_fwd")):
         fail("dense_eta_path", f"a kernel of the path never launched: {flat}")
-    # [start, GMM_opt, Reg_opt, Reg_opt, ...]: the first Reg_opt is not
-    # compared with the FE recorded before the start momenta's energy
-    if not (all(map(math.isfinite, fes)) and monotone(fes, skip=(2,))
+    if not (all(map(math.isfinite, fes)) and monotone(fes)
             and psr.fe_increase_events == 0 and fes[-1] < fes[0]):
         fail("dense_eta_path", "free energy not finite, not monotone or not lower")
     x1 = psr.get_warped_data_points()
@@ -1429,12 +1491,12 @@ def phase_api_eta(counters, icp_two_set, icp_atlas):
         ("icp_two_set", lambda cb: icp_two_set(
             x_a, x_b, GMM_parameters={"sigma": 0.05, "optimize_sigma": True},
             registration_parameters=reg, numerical_options=num,
-            optim_options={"max_iterations": 2}, printstuff=False, callback_function=cb,
+            optim_options={"max_iterations": 1}, printstuff=False, callback_function=cb,
             device="cuda")),
         ("icp_atlas", lambda cb: icp_atlas(
             grid_frames(2, n), GMM_parameters={"init_components": 20},
             registration_parameters=reg, numerical_options=num,
-            optim_options={"max_iterations": 2}, printstuff=False, callback_function=cb,
+            optim_options={"max_iterations": 1}, printstuff=False, callback_function=cb,
             device="cuda")),
     ):
         fes = []
@@ -1448,8 +1510,7 @@ def phase_api_eta(counters, icp_two_set, icp_atlas):
               "eta": psr.lcfg.eta, "seconds": time.perf_counter() - t0,
               "FE_sequence": fes, "fe_increase_events": psr.fe_increase_events,
               "launches": flat})
-        # [GMM_opt, Reg_opt, ...]: the first Reg_opt follows the start momenta
-        if not (monotone(fes, skip=(1,)) and psr.fe_increase_events == 0
+        if not (monotone(fes) and psr.fe_increase_events == 0
                 and math.isfinite(psr.FE)):
             fail("api_eta", f"{name}: free energy not monotone")
         if psr.lcfg.eta == 0.0 or not all(flat[key] > 0 for key in ETA_KERNELS):
@@ -1515,13 +1576,15 @@ def main():
     phase_grid_route_agreement(backend)
     phase_api_grid(counters, icp_two_set, icp_atlas)
     t0 = time.perf_counter()
-    phase_profile(psr, counters)
+    # an outer iteration cut to one L-BFGS step of 10 inner iterations: the
+    # trace's own cost grows with its launches
+    phase_profile(psr, counters, run_kw=dict(GRID_RUN, reg_nmax=1))
     emit({"phase": "profile_done", "seconds": time.perf_counter() - t0})
     del psr
 
     # the gradcomponent (eta != 0) slice
     worst.update(phase_check_eta(rs, re, ks))
-    timing_eta, worst_eta = phase_timing_eta(rs, re, ks)
+    timing_eta, worst_eta = phase_timing_eta(rs, re, ks, pp)
     for name, (rel, ab) in worst_eta.items():
         worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
     psr_eta, grid_eta_launches = phase_grid_eta_path(counters)
@@ -1535,11 +1598,10 @@ def main():
     phase_api_eta(counters, icp_two_set, icp_atlas)
     emit({"phase": "api_eta_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    # an outer iteration cut to one L-BFGS step of 10 inner iterations: the
-    # trace's own cost grows with its launches
+    # cut to 5 EM steps and one L-BFGS step of 4 inner iterations
     phase_profile(psr_eta, counters, phase="profile_eta",
                   evals_of=lambda c: c["rhs_self"]["rhs_self_fwd_eta"] / psr_eta.lcfg.nt,
-                  run_kw=dict(GRID_RUN, reg_nmax=1), host_ops=True)
+                  run_kw=dict(GRID_RUN, max_em=5, reg_nmax=1, reg_inner=4), host_ops=True)
     emit({"phase": "profile_eta_done", "seconds": time.perf_counter() - t0})
 
     pr = "difficp_tpu/ops/pallas_reductions.py"

@@ -418,15 +418,6 @@ int difficp_rhs_ext_fwd_eta(const void* x, const void* mx, const void* q,
   return (int)cudaGetLastError();
 }
 
-// The eta = 0 forward (the ETA = false instance).
-int difficp_rhs_ext_fwd(const void* x, const void* mx, const void* q,
-                        const void* p, const void* mq, void* vx, void* dc, int B,
-                        int N, int M, int D, float u, int withlogdet,
-                        void* stream) {
-  return difficp_rhs_ext_fwd_eta(x, mx, q, p, mq, vx, dc, B, N, M, D, u,
-                                 withlogdet, 0.f, 0, stream);
-}
-
 // gx: (B, N, D) cotangent of vx; gc: (B,) cotangent of each frame's dcost, on
 // the device.  Writes dx (B, N, D).
 int difficp_rhs_ext_bwd_dx(const void* x, const void* mx, const void* gx,

@@ -361,14 +361,6 @@ int difficp_rhs_self_fwd_eta(const void* q, const void* p, const void* m, void* 
   return (int)cudaGetLastError();
 }
 
-// The eta = 0 forward (the ETA = false instance).
-int difficp_rhs_self_fwd(const void* q, const void* p, const void* m, void* v,
-                         void* w, void* dc, int B, int M, int D, float u,
-                         int withlogdet, void* stream) {
-  return difficp_rhs_self_fwd_eta(q, p, m, v, w, dc, B, M, D, u, withlogdet,
-                                  0.f, 0, stream);
-}
-
 // a, b: cotangents of v and w, (B, M, D); gc: (B,) cotangent of each frame's
 // dcost, on the device.  Writes dq, dp (B, M, D).
 int difficp_rhs_self_bwd(const void* q, const void* p, const void* m,

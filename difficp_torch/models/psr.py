@@ -156,10 +156,6 @@ class MultiPSR:
         self.FE: Optional[float] = None
         self.last_reg_stats = None
         self.fe_increase_events = 0
-        # True while FE omits the energy of start momenta that are not zero
-        # (DiffPSR at eta != 0); the next registration step is then not
-        # compared with it
-        self._fe_baseline_stale = False
 
     # ----- structure views ------------------------------------------------
 
@@ -302,6 +298,8 @@ class DiffPSR(MultiPSR):
         self._reg_alpha_qn = None
         self._reg_memory = None
         self.last_reg_evals = None
+        # start momenta whose free energy is not recorded yet (eta != 0)
+        self._start_pending = False
         self.initialize_a0()
         self.update_GMM_targets()
 
@@ -317,7 +315,36 @@ class DiffPSR(MultiPSR):
         with torch.no_grad():
             self.a0 = lddmm_mod.v2p(self.lcfg, self.q0, torch.zeros_like(self.q0),
                                     rcond=rcond, qmask=self.qmask)
-        self._fe_baseline_stale = True
+        self._start_pending = True
+
+    def _record_start(self):
+        """The free energy of start momenta that are not zero (eta != 0), taken
+        before the first optimization step after them: one shoot gives the
+        warped points and the trajectory loss of a0, the targets follow, and
+        the result is recorded as a new baseline (momenta set anew are a new
+        start, not a descent step), so that the monotone-FE check compares the
+        first step with a0's own free energy.  Until then x1 and regloss stay
+        as they were (x0 and 0 after the set-up), as the JAX package and the
+        reference keep them, which omits a0's energy."""
+        if not self._start_pending:
+            return
+        self._start_pending = False
+        use_ext = self.support_scheme is not None
+        with torch.no_grad():
+            final, _ = lddmm_mod.shoot(self.lcfg, self.q0, self.a0,
+                                       self.x0 if use_ext else None, self.qmask,
+                                       self.xmask if use_ext else None)
+            self.regloss = lddmm_mod.trajloss(self.lcfg, self.q0, self.a0, final.cost,
+                                              self.qmask)
+        self.x1 = final.x if use_ext else final.q
+        self.FE = None
+        self.update_GMM_targets()
+
+    def GMM_opt(self, max_iterations=100, tol=1e-5):
+        """Partial optimization, GMM part (PSR.py:242-271), after recording
+        the free energy of new start momenta."""
+        self._record_start()
+        super().GMM_opt(max_iterations, tol)
 
     def update_a0(self, q0_prev, qmask_prev, a0_prev=None, rcond=1e-1):
         """Project the previous vector field onto the new support
@@ -330,7 +357,7 @@ class DiffPSR(MultiPSR):
                                     qmask=self.qmask)
         self._reg_vg = None  # new support / momenta: stale entry (value, grad)
         self._reg_stall = None
-        self._fe_baseline_stale = self._fe_baseline_stale or self.lcfg.eta != 0.0
+        self._start_pending = self.lcfg.eta != 0.0
 
     def set_support_scheme(self, scheme="decim", rho=1.0, xticks=None,
                            yticks=None, q0=None):
@@ -375,6 +402,7 @@ class DiffPSR(MultiPSR):
         objective is unchanged (any EM target update invalidates it).
         ``frame_chunk``: run the K frames in sequential chunks of at most this
         many lanes; all per-frame threaded state is sliced per chunk."""
+        self._record_start()
         use_ext = self.support_scheme is not None
         sig2 = self._sig2_vector()
         k = self.q0.shape[0]
@@ -431,18 +459,7 @@ class DiffPSR(MultiPSR):
             msg = f"Reg_opt ({self.K} frames in lockstep) : loss={total_loss:.4}"
         else:
             msg = None
-        self._drop_stale_baseline()
         self.update_FE(message=msg)
-
-    def _drop_stale_baseline(self):
-        """At eta != 0 the start momenta (initialize_a0, update_a0) carry
-        energy and move the points, but FE was recorded without them
-        (regloss 0, x1 = x0, as the JAX package and the reference keep it).
-        The first registration step after them is not compared with that
-        value: the monotone-FE check resumes from the step's own FE."""
-        if self._fe_baseline_stale:
-            self.FE = None
-            self._fe_baseline_stale = False
 
     def _gmm_pass(self, max_em, em_tol):
         """EM on every structure from the current warped points: new GMM
@@ -475,6 +492,7 @@ class DiffPSR(MultiPSR):
         """
         if n_iters <= 0:
             return np.zeros((0,), np.float64)
+        self._record_start()
         use_ext = self.support_scheme is not None
         k = self.K
         alpha = self._reg_alpha
@@ -509,7 +527,6 @@ class DiffPSR(MultiPSR):
             self._reg_memory = mem
         fes_host = torch.stack(fes).double().cpu().numpy()
         inc = int(np.sum(np.diff(fes_host) > 1e-4 * np.abs(fes_host[:-1]) + 1e-6))
-        self._drop_stale_baseline()
         if self.FE is not None and fes_host[0] > self.FE + 1e-4 * abs(self.FE):
             inc += 1
         if inc and self.printstuff:

@@ -337,8 +337,8 @@ def _coords(vals, q, p=None):
 def rhs_self_fwd_poly(q, p, mask, sigma, eta, withlogdet):
     """(vq, Gq, dc) of the fused self RHS for any eta, from the same component
     densities as the backward (the caller centers q); dc per frame.  The JAX
-    package's generated self forward; the port's routes take the any-eta
-    kernel instead (``ops/rhs_self.py`` says why)."""
+    package's generated self forward, taken from ``rhs_self._POLY_FWD_MIN_M``
+    points on (``rhs_self.eta_forward``)."""
     m, d = q.shape[-2], q.shape[-1]
     vals = _coords({"m": mask}, q, p)
     polys = _self_fwd_polys(d, sigma, eta, withlogdet)

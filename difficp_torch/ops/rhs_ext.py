@@ -22,7 +22,7 @@ The forward kernel takes eta as a template switch: its ETA instance adds the
 gradcomponent terms of ``csrc/rhs_ext.cu``'s header (the TPU's any-eta
 ``_vx_kernel``).  At eta != 0, ``RHSExt`` routes as the JAX package's
 ``make_rhs_ext``: one centroid shift shared by all its parts, the support's
-self terms as ``rhs_self.RHSSelf`` takes them (the any-eta kernel), the
+self terms as ``rhs_self.RHSSelf`` takes them (``rhs_self.eta_forward``), the
 cross forward through the any-eta kernel below ``rhs_self._POLY_FWD_MIN_M``
 data points a frame and through the generated kernel-sums of
 ``ops/pair_poly.py`` from there on, and the backward through the generated
@@ -233,8 +233,6 @@ def _lib():
     lib = _build.library()
     if not _bound:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.difficp_rhs_ext_fwd.argtypes = [vp] * 7 + [ci] * 4 + [cf, ci, vp]
-        lib.difficp_rhs_ext_fwd.restype = ci
         lib.difficp_rhs_ext_fwd_eta.argtypes = [vp] * 7 + [ci] * 4 + [cf, ci, cf, ci, vp]
         lib.difficp_rhs_ext_fwd_eta.restype = ci
         lib.difficp_rhs_ext_bwd_dx.argtypes = [vp] * 8 + [ci] * 4 + [cf, ci, vp]
@@ -393,7 +391,7 @@ def _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta):
 
     c = ksum.mm_center(q, mq)
     qc = q - c
-    v, w, _ = rhs_self.rhs_self_fwd(q, p, mq, sigma, False, eta)
+    v, w, _ = rhs_self.eta_forward(q, p, mq, sigma, False, eta)
     if x.shape[-2] >= rhs_self._POLY_FWD_MIN_M:
         vx, dc = pair_poly.rhs_ext_fwd_poly(qc, p, x - c, mq, mx, sigma, eta,
                                             withlogdet)

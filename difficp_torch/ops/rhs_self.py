@@ -18,17 +18,10 @@ the TPU kernels of ``difficp_tpu/ops/pallas_reductions.py`` (forward:
 ``_rhs_self_bwd_mm_kernel``, ``_rhs_self_sym_pair_kernel`` mode="bwd").  What
 bounds them and how their design answers it is noted in the source.
 
-At eta != 0 ``RHSSelf``'s backward is the generated one of
-``ops/pair_poly.py`` (generic kernel-sums), as in the JAX package's
-``make_rhs_self``; its forward is the any-eta kernel at every size, where the
-JAX package takes the generated forward from ``_POLY_FWD_MIN_M`` points on.
-That forward's float32 monomial expansion loses the near-cancelling (v, -Gq)
-of a start from v2p's zero-speed momenta (relative errors of 1e-3 at 1,024
-spiral points and 0.3 at 2,048, against 4e-5 and 2e-2 for the direct sum), and
-fed back through the shoot those errors diverge: the JAX routing turns the
-dense eta registration at 32,768 points into NaN on the card.  The ext
-forward's errors do not feed back (the data do not move the support), so
-``rhs_ext`` keeps the JAX routing.
+At eta != 0 ``RHSSelf`` routes as the JAX package's ``make_rhs_self``: the
+forward is the any-eta kernel below ``_POLY_FWD_MIN_M`` points a frame and the
+generated forward of ``ops/pair_poly.py`` (generic kernel-sums on centered
+coordinates) from there on; the backward is always the generated one.
 
 Beside each kernel is its plain PyTorch version (``rhs_self_fwd_reference``,
 ``rhs_self_bwd_reference``), chunked over rows so memory stays O(chunk M).  A
@@ -51,10 +44,10 @@ from difficp_torch.ops import _build
 # instance of the forward kernel counts apart
 launches = {"rhs_self_fwd": 0, "rhs_self_bwd": 0, "rhs_self_fwd_eta": 0}
 
-# eta != 0 ext forwards switch from the any-eta kernel to the generated
-# kernel-sum forward (pair_poly) at this many data points a frame (the JAX
-# package's pallas_reductions._POLY_FWD_MIN_M, which there gates the self
-# forward too; see the module docstring)
+# eta != 0 forwards switch from the any-eta kernels to the generated
+# kernel-sum forwards (pair_poly) at this many points a frame: support points
+# for the self terms, data points for the ext cross terms (the JAX package's
+# pallas_reductions._POLY_FWD_MIN_M)
 _POLY_FWD_MIN_M = 32768
 
 _bound = False
@@ -214,8 +207,6 @@ def _lib():
     lib = _build.library()
     if not _bound:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.difficp_rhs_self_fwd.argtypes = [vp] * 6 + [ci, ci, ci, cf, ci, vp]
-        lib.difficp_rhs_self_fwd.restype = ci
         lib.difficp_rhs_self_fwd_eta.argtypes = [vp] * 6 + [ci, ci, ci, cf, ci, cf, ci, vp]
         lib.difficp_rhs_self_fwd_eta.restype = ci
         lib.difficp_rhs_self_bwd.argtypes = [vp] * 8 + [ci, ci, ci, cf, ci, vp]
@@ -310,19 +301,34 @@ def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet):
 # autograd Functions
 # ---------------------------------------------------------------------------
 
+def eta_forward(q, p, m, sigma, withlogdet, eta):
+    """(v, w, dcost per frame) at eta != 0, routed as ``make_rhs_self``: the
+    any-eta kernel below ``_POLY_FWD_MIN_M`` points, else the generated
+    forward on centered coordinates."""
+    if q.shape[-2] < _POLY_FWD_MIN_M:
+        v, w, dc = rhs_self_fwd(q, p, m, sigma, withlogdet, eta)
+        return v, w, dc.sum(-1)
+    from difficp_torch.ops import ksum, pair_poly
+
+    v, gq, dc = pair_poly.rhs_self_fwd_poly(q - ksum.mm_center(q, m), p, m, sigma, eta,
+                                            withlogdet)
+    return v, -gq, dc
+
+
 class RHSSelf(torch.autograd.Function):
     """(v, w, dcost) = fused self RHS.  At eta = 0 the backward recomputes k
     in the backward kernel from the saved q, p and m.  At eta != 0 the
-    forward is the any-eta kernel and the backward the generated kernel-sums
-    on centered coordinates (the module docstring says why the forward does
-    not take the generated route)."""
+    forward is ``eta_forward`` and the backward the generated kernel-sums on
+    centered coordinates."""
 
     @staticmethod
     def forward(ctx, q, p, m, sigma, withlogdet, eta=0.0):
         q, p, m = q.contiguous(), p.contiguous(), m.contiguous()
         ctx.save_for_backward(q, p, m)
         ctx.sigma, ctx.withlogdet, ctx.eta = sigma, withlogdet, eta
-        v, w, dc = rhs_self_fwd(q, p, m, sigma, withlogdet, eta)
+        if eta != 0.0:
+            return eta_forward(q, p, m, sigma, withlogdet, eta)
+        v, w, dc = rhs_self_fwd(q, p, m, sigma, withlogdet)
         return v, w, dc.sum(-1)
 
     @staticmethod

@@ -66,8 +66,9 @@ def load_psr_state(psr, arrays: dict):
     psr._update_quadlosses()
     if "FE" in arrays:
         psr.FE = None if arrays["FE"] is None else float(arrays["FE"])
-        # the loaded FE is the loaded state's own: the next step compares with it
-        psr._fe_baseline_stale = False
+    # the loaded momenta, warped points and free energy belong together: no
+    # start free energy is pending
+    psr._start_pending = False
     return psr
 
 

@@ -16,6 +16,7 @@ from difficp_tpu.api.icp_two_set import icp_two_set as j_icp_two_set
 from difficp_torch.api.icp_atlas import icp_atlas as t_icp_atlas
 from difficp_torch.api.icp_two_set import icp_two_set as t_icp_two_set
 from difficp_torch.ops import backend as TB
+from test_torch_eta_psr import patch_jax_start
 
 torch.set_num_threads(1)
 
@@ -26,11 +27,13 @@ MU = SPIRAL["mu0"]
 FE_RTOL = 5e-3
 
 
-def test_icp_entries_with_gradcomponent_match_jax():
+def test_icp_entries_with_gradcomponent_match_jax(monkeypatch):
     """icp_two_set and icp_atlas with default support (grid) and
     gradcomponent_LDDMM=True: the option reaches the model (eta = 1 /
     lambda), the run is monotone and ends at the JAX package's free energy
-    and GMM sigma within 5e-3."""
+    and GMM sigma within 5e-3, the JAX package given the port's start free
+    energy (test_torch_eta_psr.patch_jax_start)."""
+    patch_jax_start(monkeypatch)
     reg = {"type": "diffeomorphic", "sigma_LDDMM": 0.3, "lambda_LDDMM": 200.0}
     num = {"gradcomponent_LDDMM": True, "integration_nt_LDDMM": 5}
     cases = (
