@@ -63,9 +63,29 @@ Phases, each printing JSON lines with its seconds:
                  one iteration each;
  17. profile eta a torch.profiler trace of one outer iteration of the grid
                  eta path, cut to 5 EM steps and one L-BFGS step of 4 inner
-                 iterations, with the host operators by their own CPU time.
+                 iterations, with the host operators by their own CPU time;
+ 18. check cross the cross forward kernel (rows against a different column
+                 set: rhs_cross_fwd, and its ETA instance) against its plain
+                 version in float64, distinct sets of 16,384 and 65,536 points
+                 with holes, d = 2 and 3; its ETA instance at eta = 0 and its
+                 self entry, bit for bit;
+ 19. timing cross each instance at its ring path's shape, held against its
+                 plain version there, then timed beside it and its bound; the
+                 same for ksum at the generated cross backward's two shapes;
+ 20. ring twoset path  the point-sharded two-set registration
+                 (parallel/twoset.py over parallel/ring.py) at world size 1
+                 over NCCL on run_large's problem at 65,536 points: two
+                 make_twoset_step calls against the single-device alternation
+                 (EM + lddmm.optimize) at the same budgets, the start loss and
+                 gradient against the dense path's, seconds per step and per
+                 loss+grad, exact launch counts;
+ 21. ring eta path  the same with version "logdet" at 8,192 points, one
+                 step from the momenta DiffPSR.initialize_a0 gives (zero
+                 momenta carry the gradcomponent field, whose shoot diverges
+                 on these clouds).
 Each main path is driven with the launch counters set to 0 just before it
-and read just after.  Then the kernels line, the nvidia-smi line, and as the
+and read just after; the paths that run the self kernels print the free
+energies of earlier runs bit for bit or fail.  Then the kernels line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}.  Any failure exits non-zero before
 it.
 
@@ -116,9 +136,9 @@ GRID_RUN = dict(max_em=25, em_tol=1e-3, reg_nmax=10, reg_tol=1e-3, reg_inner=10,
 # the eta = 0 kernels, and the grid main path's FE sequence as this script
 # printed it before the kernels gained their ETA instances: the eta = 0
 # kernels are unchanged if it comes out bit for bit the same
-PR2_KERNELS = ("rhs_self_fwd", "rhs_self_bwd", "rhs_ext_fwd", "rhs_ext_bwd_dx",
+ETA0_KERNELS = ("rhs_self_fwd", "rhs_self_bwd", "rhs_ext_fwd", "rhs_ext_bwd_dx",
                "rhs_ext_bwd_dqdp", "kmin2")
-PR2_GRID_FE = [22501056.0, -1347914.25, -1391784.75, -1425462.25]
+GRID_FE_BEFORE = [22501056.0, -1347914.25, -1391784.75, -1425462.25]
 # the gradcomponent slice: eta = 1 / lambda of the grid path (lambda = 500) and
 # of run_large's configuration (lambda = 200)
 GRID_ETA = 1.0 / 500.0
@@ -131,6 +151,30 @@ DENSE_ETA_N = 8192
 # error at the grid path's geometry it is logged as a fault inherited from the
 # JAX package
 POLY_ERR_LOG = 1e-2
+# the free energies this script printed before the forward kernel took a
+# column set apart from its rows: the self kernels are unchanged if the paths
+# that run them print them again bit for bit
+DENSE_FE_BEFORE = [-134942.6875, -135171.546875]
+GRID_ETA_FE_BEFORE = [-2286069.75, -5406257.0, -6699564.0]
+DENSE_ETA_FE_BEFORE = [-16924.4140625] * 3 + [-16957.8828125] * 3
+# the point-sharded two-set path (parallel/): run_large's problem, at world
+# size 1 on the card; each step em_iters EM steps and one L-BFGS pass, the
+# curvature memory carried
+RING_N = 65536
+# at eta != 0 the start is v2p's momenta for a zero field (as DiffPSR's), whose
+# float32 shoot stays bounded up to the dense eta path's size (zero momenta
+# carry the gradcomponent field, whose shoot diverges on these clouds)
+RING_ETA_N = DENSE_ETA_N
+RING_STEP = dict(em_iters=5, reg_nmax=1, reg_inner=20, reg_ls=25, tol=1e-3)
+# the two-set free energies against the single-device alternation's: the
+# bound tests/test_parallel_twoset.py sets between the JAX package's sharded
+# and single-device runs; at eta = 0 the start loss (the same float32 sums in
+# other orders) and the start gradient (the generated backward's float32
+# error, the bar of ROADMAP.md section 3), relative to the largest entry.  At
+# eta != 0 v2p's start is ill-conditioned in float32 (the loss of either route
+# is off by ~1e-3 against float64 there), and those two are printed only.
+TOL_RING_FE = 1e-2
+TOL_RING_START = (1e-4, 1e-2)
 
 
 def emit(obj):
@@ -381,6 +425,9 @@ def phase_main_path(rs, backend, run_large, timing):
         fail("main_path", "warped points have the wrong shape or are not finite")
     if not iters[-1]["FE"] < iters[0]["FE"]:
         fail("main_path", "free energy did not decrease over the run")
+    if [rec["FE"] for rec in iters] != DENSE_FE_BEFORE:
+        fail("main_path", f"FE sequence {[rec['FE'] for rec in iters]} is not the self "
+                          f"kernels' earlier {DENSE_FE_BEFORE}")
 
     # a small input through both routes on the card: same free energy
     fes = {}
@@ -724,7 +771,7 @@ def phase_grid_main_path(counters):
     seconds = time.perf_counter() - t0
     launches = {name: dict(c) for name, c in counters.items()}
     flat = {key: v for c in launches.values() for key, v in c.items()
-            if key in PR2_KERNELS}
+            if key in ETA0_KERNELS}
     x1 = psr.x1
     fe_seq = [fe0, *map(float, fes), psr.FE]
     rec = {"phase": "grid_main_path", "frames": k, "n_points": n,
@@ -737,7 +784,7 @@ def phase_grid_main_path(counters):
            "last_reg_evals": psr.last_reg_evals.cpu().tolist(),
            "launches": flat,
            # the eta = 0 kernels unchanged: the FE sequence of earlier runs
-           "FE_sequence_equals_earlier_runs": fe_seq == PR2_GRID_FE}
+           "FE_sequence_equals_earlier_runs": fe_seq == GRID_FE_BEFORE}
     emit(rec)
     if not all(v > 0 for v in flat.values()):
         fail("grid_main_path", f"a kernel of the path never launched: {flat}")
@@ -748,6 +795,8 @@ def phase_grid_main_path(counters):
         fail("grid_main_path", "free energy did not decrease over the run")
     if tuple(x1.shape) != (k, n, 2) or not bool(torch.isfinite(x1).all()):
         fail("grid_main_path", "warped points have the wrong shape or are not finite")
+    if fe_seq != GRID_FE_BEFORE:
+        fail("grid_main_path", "FE sequence differs from the eta = 0 kernels' earlier one")
     return psr, flat
 
 
@@ -803,7 +852,7 @@ def phase_api_grid(counters, icp_two_set, icp_atlas):
         psr, _ = call(lambda p, after_gmm: fes.append(p.FE))
         torch.cuda.synchronize()
         flat = {key: v for c in counters.values() for key, v in c.items()
-                if key in PR2_KERNELS}
+                if key in ETA0_KERNELS}
         emit({"phase": "api_grid", "entry": name, "n_points": n,
               "frames": psr.K, "support": psr.support_scheme,
               "grid_M": int(psr.q0.shape[1]),
@@ -1223,6 +1272,9 @@ def phase_grid_eta_path(counters):
         fail("grid_eta_path", "free energy did not decrease over the run")
     if tuple(psr.x1.shape) != (k, n, 2) or not bool(torch.isfinite(psr.x1).all()):
         fail("grid_eta_path", "warped points have the wrong shape or are not finite")
+    if fe_seq != GRID_ETA_FE_BEFORE:
+        fail("grid_eta_path", f"FE sequence {fe_seq} is not the ETA kernels' earlier "
+                              f"{GRID_ETA_FE_BEFORE}")
     return psr, flat
 
 
@@ -1387,6 +1439,9 @@ def phase_dense_eta_path(counters, run_large):
     x1 = psr.get_warped_data_points()
     if x1.shape != (n_points, 2) or not bool(np.isfinite(x1).all()):
         fail("dense_eta_path", "warped points have the wrong shape or are not finite")
+    if fes != DENSE_ETA_FE_BEFORE:
+        fail("dense_eta_path", f"FE sequence {fes} is not the ETA kernel's earlier "
+                               f"{DENSE_ETA_FE_BEFORE}")
     return flat
 
 
@@ -1516,6 +1571,346 @@ def phase_api_eta(counters, icp_two_set, icp_atlas):
         if psr.lcfg.eta == 0.0 or not all(flat[key] > 0 for key in ETA_KERNELS):
             fail("api_eta", f"{name} did not take the eta kernel route: {flat}")
 
+# ---------------------------------------------------------------------------
+# the point-sharded two-set slice (parallel/): the cross forward kernel
+# ---------------------------------------------------------------------------
+
+def cross_inputs(n, d, seed):
+    """Rows on a spiral cloud and columns on a warped copy of another one,
+    each with random momenta and a mask with ~10% holes."""
+    import numpy as np
+    import torch
+    from difficp_torch.examples.run_large import spiral_cloud, warp
+
+    g = torch.Generator().manual_seed(seed)
+    qr = torch.as_tensor(spiral_cloud(n, np.random.default_rng(seed), dim=d))
+    qc = torch.as_tensor(warp(spiral_cloud(n, np.random.default_rng(seed + 1), dim=d), d))
+    pr, pc = (0.05 * torch.randn((n, d), generator=g) for _ in range(2))
+    mr, mc = ((torch.rand((n,), generator=g) > 0.1).float() for _ in range(2))
+    return [t[None].cuda() for t in (qr, pr, mr, qc, pc, mc)]
+
+
+def phase_check_cross(rs, rc):
+    """The cross forward kernel (#10, eta = 0) and its ETA instance (#11)
+    against their plain versions in float64 on the same float32 inputs,
+    distinct row and column sets of 16,384 and 65,536 points with holes, d =
+    2 and 3; the ETA instance at eta = 0 against the eta = 0 instance, and
+    the cross entry with a set as its own columns against the self entry, bit
+    for bit."""
+    import torch
+
+    t0 = time.perf_counter()
+    worst = {"rhs_cross_fwd": [0.0, 0.0], "rhs_cross_fwd_eta": [0.0, 0.0]}
+    identical = True
+    for n in (16384, 65536):
+        for d in (2, 3):
+            args = cross_inputs(n, d, seed=n + d)
+            f64 = [t.double() for t in args]
+            for name, eta in (("rhs_cross_fwd", 0.0), ("rhs_cross_fwd_eta", DENSE_ETA)):
+                for wl in ((True, False) if n == 16384 else (True,)):
+                    v, w, dc = rc.rhs_cross_fwd(*args, SIGMA, wl, eta)
+                    torch.cuda.synchronize()
+                    rv, rw, rdc = rc.rhs_cross_fwd_reference(*f64, SIGMA, wl, eta)
+                    torch.cuda.synchronize()
+                    rel = max(rel_err(v, rv), rel_err(w, rw))
+                    dc_rel = float((dc.double().sum() - rdc.sum()).abs()
+                                   / rdc.abs().sum().clamp_min(1e-300))
+                    ok = rel <= TOL_FWD and dc_rel <= TOL_FWD
+                    emit({"phase": "check_cross", "kernel": name, "M": n, "N": n, "d": d,
+                          "eta": eta, "withlogdet": wl, "rel_err": rel, "dcost_rel_err": dc_rel,
+                          "tol": TOL_FWD, "ok": ok})
+                    if not ok:
+                        fail("check_cross", f"{name} disagrees with its plain version at "
+                                            f"M=N={n} d={d} withlogdet={wl}")
+                    worst[name][0] = max(worst[name][0], rel, dc_rel)
+                    worst[name][1] = max(worst[name][1], abs_err(v, rv), abs_err(w, rw))
+            del f64, v, w, dc, rv, rw, rdc
+            qr, pr, mr = args[:3]
+            same = all(torch.equal(a, b) for a, b in zip(
+                rc.launch_fwd(*args, SIGMA, True, 0.0, False),
+                rc.launch_fwd(*args, SIGMA, True, 0.0, True)))
+            self_same = all(torch.equal(a, b) for eta, use in ((0.0, False), (DENSE_ETA, True))
+                            for a, b in zip(rs.launch_fwd(qr, pr, mr, SIGMA, True, eta, use),
+                                            rc.launch_fwd(qr, pr, mr, qr, pr, mr, SIGMA, True,
+                                                          eta, use)))
+            emit({"phase": "check_cross_identity", "N": n, "d": d,
+                  "eta_instance_at_0_bit_identical": same,
+                  "self_entry_bit_identical": self_same})
+            identical = identical and same and self_same
+    torch.cuda.empty_cache()
+    emit({"phase": "check_cross_done", "seconds": time.perf_counter() - t0,
+          "bit_identical": identical})
+    if not identical:
+        fail("check_cross", "an instance or entry of the forward kernel changed its outputs")
+    return worst
+
+
+def phase_timing_cross(rc):
+    """Each cross instance at the shape its ring path gives it (world size 1:
+    the whole set as rows and columns; #10 at RING_N points, logdet on, #11
+    at RING_ETA_N), first held against its float64 plain version there, then
+    timed with CUDA events (median of 15) beside its plain version and its
+    bound (the function's least work per ordered pair)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out, worst = {}, {}
+    for name, n, eta in (("rhs_cross_fwd", RING_N, 0.0),
+                         ("rhs_cross_fwd_eta", RING_ETA_N, DENSE_ETA)):
+        d = 2
+        q, p, mask, *_ = make_inputs(n, d, False, seed=n)
+        args = (q, p, mask, q, p, mask)
+        got = rc.rhs_cross_fwd(*args, SIGMA, True, eta)
+        torch.cuda.synchronize()
+        ref = rc.rhs_cross_fwd_reference(*(t.double() for t in args), SIGMA, True, eta)
+        rel = max(rel_err(a, r) for a, r in zip(got[:2], ref[:2]))
+        worst[name] = [rel, max(abs_err(a, r) for a, r in zip(got[:2], ref[:2]))]
+        emit({"phase": "check_main_shape", "kernel": name, "M": n, "N": n, "d": d,
+              "rel_err": rel, "tol": TOL_FWD, "ok": rel <= TOL_FWD})
+        if rel > TOL_FWD:
+            fail("check_main_shape", f"{name} disagrees at the ring path's shape")
+        del got, ref
+        fn = lambda: rc.rhs_cross_fwd(*args, SIGMA, True, eta)  # noqa: E731
+        plain = lambda: rc.rhs_cross_fwd_reference(*args, SIGMA, True, eta)  # noqa: E731
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 15)
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(plain, 3)
+        # the work this run's data needs: every (unmasked row, unmasked
+        # column) pair once; rows and columns read once, outputs written once
+        pairs = float(mask.sum()) ** 2
+        ops = (rc.cross_fwd_ops_per_pair(d) if eta == 0.0
+               else rc.cross_fwd_eta_ops_per_pair(d, True))
+        nbytes = 4.0 * n * (2 * d + 1) * 3
+        bd = bound(pairs, ops, pairs, nbytes)
+        out[name] = dict(M=n, N=n, d=d, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
+                         share_of_bound=bd["bound_ms"] / ms, pairs=pairs,
+                         fp32_ops_per_pair=ops, gpair_per_s=pairs / (ms * 1e-3) / 1e9)
+        emit({"phase": "timing", "kernel": name, **out[name]})
+    torch.cuda.empty_cache()
+    # the generated cross backward's two kernel-sums at the eta = 0 ring
+    # path's shape (one frame, RING_N rows against RING_N columns; 18 and 36
+    # columns at d = 2)
+    from difficp_torch.ops import ksum as ks
+
+    q, *_ = make_inputs(RING_N, 2, False, seed=RING_N)
+    x = q[0]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out["ksum"] = []
+    worst["ksum"] = [0.0, 0.0]
+    for label, ncols in (("ring backward, row direction", 18),
+                         ("ring backward, column direction", 36)):
+        tab = torch.randn((ncols, RING_N), generator=g, device="cuda")
+        got = ks.ksum(x, x, tab, None, SIGMA)
+        torch.cuda.synchronize()
+        ref = ks.ksum_reference(x.double(), x.double(), tab.double(), None, SIGMA)
+        rel, ab = rel_err(got, ref), abs_err(got, ref)
+        del got, ref
+        emit({"phase": "check_main_shape", "kernel": "ksum", "call": label, "Nx": RING_N,
+              "Ny": RING_N, "cols": ncols, "rel_err": rel, "tol": TOL_FWD, "ok": rel <= TOL_FWD})
+        if rel > TOL_FWD:
+            fail("check_main_shape", f"ksum disagrees with its plain version at {label}")
+        worst["ksum"] = [max(worst["ksum"][0], rel), max(worst["ksum"][1], ab)]
+        fn = lambda: ks.ksum(x, x, tab, None, SIGMA)  # noqa: E731
+        plain = lambda: ks.ksum_reference(x, x, tab, None, SIGMA)  # noqa: E731
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 15)
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(plain, 3)
+        pairs = float(RING_N) * RING_N
+        bd = ksum_bound(pairs, 2, ncols, 4.0 * (2 * RING_N * 2 + 2 * ncols * RING_N))
+        rec = dict(call=label, frames=1, Nx=RING_N, Ny=RING_N, cols=ncols, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, **bd,
+                   share_of_bound=bd["bound_ms"] / ms,
+                   y_cols_per_split=ks.splitting(1, RING_N, RING_N, ncols),
+                   gpair_per_s=pairs / (ms * 1e-3) / 1e9)
+        out["ksum"].append(rec)
+        emit({"phase": "timing", "kernel": "ksum", **rec})
+    torch.cuda.empty_cache()
+    emit({"phase": "timing_cross_done", "seconds": time.perf_counter() - t0})
+    return out, worst
+
+
+def twoset_problem(n, version):
+    """examples/run_large.py's problem at n points: a spiral cloud registered
+    onto a GMM of C = 64 components over a warped copy (sigma 0.05), LDDMM
+    sigma = 0.1, lambda = 200, nt = 10 Euler, dense support."""
+    import numpy as np
+    import torch
+    from difficp_torch.examples.run_large import spiral_cloud, warp
+    from difficp_torch.models import gmm, lddmm
+
+    rng = np.random.default_rng(0)
+    x_a = spiral_cloud(n, rng)
+    x_b = warp(spiral_cloud(n, rng), 2)
+    state, _ = gmm.create(x_b[rng.integers(0, n, 64)], sigma=0.05, device="cuda")
+    gcfg = gmm.GMMConfig(optimize_mu=True, optimize_sigma=True, optimize_w=True,
+                         optimize_eta0=False)
+    lcfg = lddmm.make_config(sigma=SIGMA, lambd=200.0, version=version, nt=10,
+                             scheme="Euler")
+    return torch.as_tensor(x_a), state, gcfg, lcfg
+
+
+def em_targets(gcfg, st, x1, mask, em_iters):
+    """The E/M steps a two-set step opens with: the GMM state, the targets y,
+    the free-energy offset and the weights gammaT."""
+    from difficp_torch.models import gmm
+
+    for _ in range(em_iters):
+        st = gmm.em_step(st, x1, mask, gcfg).state
+    out = gmm.em_step(st, x1, mask, gcfg, skip_m=True)
+    return st, out.y, out.cfe, out.gamt
+
+
+def alternation_step(gcfg, lcfg, q0, mask, st, a, x1, alpha, memory):
+    """One step of the single-device alternation at the two-set step's
+    budgets (tests/test_parallel_twoset.py:157-175): EM, then lddmm.optimize
+    on the dense path (one frame), the curvature memory carried."""
+    from difficp_torch.models import lddmm
+
+    st, y, cfe, ptw = em_targets(gcfg, st, x1, mask, RING_STEP["em_iters"])
+    sig2 = st.sigma ** 2
+
+    def dataloss(pts):
+        return (((mask * ptw)[:, None] * (pts[0] - y) ** 2).sum() / (2.0 * sig2))[None]
+
+    res = lddmm.optimize(lcfg, dataloss, q0[None], a[None], None, mask[None], None,
+                         nmax=RING_STEP["reg_nmax"], tol=RING_STEP["tol"],
+                         inner=RING_STEP["reg_inner"],
+                         max_linesearch_steps=RING_STEP["reg_ls"], alpha0=alpha,
+                         memory0=memory)
+    fe = float(cfe + res.trajl[0] + res.datal[0])
+    return st, res.p0[0], res.final.q[0], fe, res.alpha, res.memory
+
+
+def phase_ring_path(phase, n, version, steps, counters, kernel, start_tol=None):
+    """The point-sharded two-set registration at world size 1 over NCCL on
+    run_large's problem at n points: ``steps`` make_twoset_step calls (the
+    launch counters set to 0 just before, read just after), then the same
+    budgets through the single-device alternation; the loss and gradient of
+    the ring and of the dense path at the first step's start (held to
+    ``start_tol``, (loss, gradient), when given), and the seconds of a ring
+    loss+grad.  At eta = 0 the momenta start at zero, as in
+    the JAX package's two-set tests; at eta != 0 zero momenta carry the
+    gradcomponent field, whose shoot diverges on these clouds, so they start
+    where DiffPSR.initialize_a0 starts them (v2p's momenta for a zero field)
+    with the points shot from there."""
+    import torch
+    import torch.distributed as dist
+    from difficp_torch.models import lddmm
+    from difficp_torch.parallel import (init_distributed, make_sharded_reg_loss,
+                                        make_twoset_step, shard_twoset, zero_twoset_memory)
+
+    t0 = time.perf_counter()
+    x_a, gstate, gcfg, lcfg = twoset_problem(n, version)
+    group, size, _ = init_distributed("cuda")
+    try:
+        backend_name = dist.get_backend(group)
+        q0, mask = shard_twoset(group, x_a, torch.ones(n), device="cuda")
+        step = make_twoset_step(gcfg, lcfg, group, carry_memory=True, **RING_STEP)
+        a_start, x_start = torch.zeros_like(q0), q0
+        if lcfg.eta != 0.0:
+            with torch.no_grad():
+                a_start = lddmm.v2p(lcfg, q0[None], torch.zeros_like(q0)[None], rcond=1e-3,
+                                    qmask=mask[None])[0]
+                x_start = lddmm.shoot(lcfg, q0[None], a_start[None], None, mask[None])[0].q[0]
+        torch.cuda.synchronize()
+        reset(*counters.values())
+        st, a, x1, al, mem = gstate, a_start, x_start, 0.0, zero_twoset_memory(q0)
+        fes, step_s = [], []
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            out = step(st, q0, a, x1, mask, al, mem)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            st, a, x1, al, mem = out.gmm, out.a0, out.x1, out.alpha, out.memory
+            fes.append(float(out.fe))
+        flat = flat_counts(counters)
+
+        # the start of the first step: the ring's loss and gradient against
+        # the dense path's on the same EM targets; a ring loss+grad timed
+        st1, y, _, ptw = em_targets(gcfg, gstate, x_start, mask, RING_STEP["em_iters"])
+        sig2 = st1.sigma ** 2
+        ring_loss = make_sharded_reg_loss(lcfg, group)
+
+        def ring_vg():
+            p = a_start.clone().requires_grad_(True)
+            loss = ring_loss(p, q0, y, ptw, mask, sig2)
+            return loss.detach(), torch.autograd.grad(loss, p)[0]
+
+        def dense_vg():
+            p = a_start[None].clone().requires_grad_(True)
+            final, _ = lddmm.shoot(lcfg, q0[None], p, None, mask[None])
+            quad = ((mask * ptw)[:, None] * (final.q[0] - y) ** 2).sum() / (2.0 * sig2)
+            loss = lddmm.trajloss(lcfg, q0[None], p, final.cost, mask[None])[0] + quad
+            return loss.detach(), torch.autograd.grad(loss, p)[0][0]
+
+        (l_ring, g_ring), (l_dense, g_dense) = ring_vg(), dense_vg()
+        torch.cuda.synchronize()
+        vg_s = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            ring_vg()
+            torch.cuda.synchronize()
+            vg_s.append(time.perf_counter() - t1)
+    finally:
+        dist.destroy_process_group()
+    loss_rel = float((l_ring - l_dense).abs() / l_dense.abs())
+    grad_rel = rel_err(g_ring, g_dense.double())
+
+    # the single-device alternation at the same budgets
+    t1 = time.perf_counter()
+    st, a, x1, alpha, mem, twin = gstate, a_start, x_start, None, None, []
+    for _ in range(steps):
+        st, a, x1, fe, alpha, mem = alternation_step(gcfg, lcfg, q0, mask, st, a, x1, alpha,
+                                                     mem)
+        twin.append(fe)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t1
+
+    nt = lcfg.nt
+    evals = flat[kernel] / nt
+    per_eval = {kernel: nt, "ksum": 2 * nt + 3}
+    exact = (flat[kernel] == nt * round(evals)
+             and flat["ksum"] == per_eval["ksum"] * round(evals)
+             and all(v == 0 for key, v in flat.items() if key not in per_eval))
+    fe_rel = [abs(f - t) / abs(t) for f, t in zip(fes, twin)]
+    rec = {"phase": phase, "n_points": n, "world_size": size, "backend": backend_name,
+           "version": version, "eta": lcfg.eta, "steps": steps, **RING_STEP,
+           "FE_sequence": fes, "alternation_FE_sequence": twin, "FE_rel_diff": fe_rel,
+           "tol_fe": TOL_RING_FE, "start_loss": float(l_ring),
+           "start_loss_dense": float(l_dense), "start_loss_rel_diff": loss_rel,
+           "start_grad_rel_err": grad_rel, "tol_start": start_tol,
+           "alpha": float(out.alpha),
+           "seconds_per_step": step_s, "loss_grad_evals": evals,
+           "seconds_per_loss_grad": statistics.median(vg_s),
+           "alternation_seconds": twin_s, "launches": flat,
+           "expected_per_loss_grad": per_eval, "launches_exact": exact,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (flat[kernel] > 0 and flat["ksum"] > 0 and exact):
+        fail(phase, f"launch counts not those of {evals} loss+grad evaluations: {flat}")
+    if not all(map(math.isfinite, fes)):
+        fail(phase, f"free energy not finite: {fes}")
+    if any(b > a + 1e-3 * abs(a) for a, b in zip(fes, fes[1:])):
+        fail(phase, f"free energy not monotone: {fes}")
+    if max(fe_rel) > TOL_RING_FE:
+        fail(phase, f"free energies {fes} differ from the alternation's {twin}")
+    if not (math.isfinite(loss_rel) and math.isfinite(grad_rel)):
+        fail(phase, "start loss or gradient not finite")
+    if start_tol is not None and (loss_rel > start_tol[0] or grad_rel > start_tol[1]):
+        fail(phase, f"start loss ({loss_rel}) or gradient ({grad_rel}) differs from the "
+                    f"dense path's")
+    if tuple(out.x1.shape) != (n, 2) or not bool(torch.isfinite(out.x1).all()):
+        fail(phase, "warped points have the wrong shape or are not finite")
+    return rec
+
 
 def main():
     import torch
@@ -1535,6 +1930,7 @@ def main():
     from difficp_torch.ops import ksum as ks
     from difficp_torch.ops import pair_poly as pp
     from difficp_torch.ops import reductions as tr
+    from difficp_torch.ops import rhs_cross as rc
     from difficp_torch.ops import rhs_ext as re
     from difficp_torch.ops import rhs_self as rs
 
@@ -1554,7 +1950,7 @@ def main():
           "one_call_seconds": one_call_build_seconds(_build), "ptxas": regs})
 
     counters = {"rhs_self": rs.launches, "rhs_ext": re.launches, "kmin2": k2.launches,
-                "ksum": ks.launches}
+                "ksum": ks.launches, "rhs_cross": rc.launches}
     t0 = time.perf_counter()
     worst = phase_check(rs)
     emit({"phase": "check_done", "seconds": time.perf_counter() - t0})
@@ -1604,6 +2000,17 @@ def main():
                   run_kw=dict(GRID_RUN, max_em=5, reg_nmax=1, reg_inner=4), host_ops=True)
     emit({"phase": "profile_eta_done", "seconds": time.perf_counter() - t0})
 
+    # the point-sharded two-set slice: the cross forward kernel and the ring
+    worst.update(phase_check_cross(rs, rc))
+    timing_cross, worst_cross = phase_timing_cross(rc)
+    for name, (rel, ab) in worst_cross.items():
+        worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
+    timing_eta["ksum"] += timing_cross.pop("ksum")
+    ring = phase_ring_path("ring_twoset_path", RING_N, "hybrid", 2, counters, "rhs_cross_fwd",
+                           TOL_RING_START)
+    ring_eta = phase_ring_path("ring_eta_path", RING_ETA_N, "logdet", 1, counters,
+                               "rhs_cross_fwd_eta")
+
     pr = "difficp_tpu/ops/pallas_reductions.py"
     sources = {"rhs_self": "difficp_torch/csrc/rhs_self.cu",
                "rhs_ext": "difficp_torch/csrc/rhs_ext.cu",
@@ -1640,13 +2047,16 @@ def main():
     for name, (source, rep, also) in eta_kernels.items():
         shapes = timing_eta[name]
         # the headline shape: the grid eta path's costliest call of the kernel
-        grid = [r for r in shapes if not r["call"].startswith("dense")]
+        grid = [r for r in shapes if not r["call"].startswith(("dense", "ring"))]
         t = max(grid, key=lambda r: r["ms"])
+        by_path = {"grid_eta_path": grid_eta_launches[name],
+                   "dense_eta_path": dense_eta_launches[name]}
+        if name == "ksum":
+            by_path.update({path["phase"]: path["launches"][name] for path in (ring, ring_eta)})
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
             "also_replaces": also, "launches": grid_eta_launches[name],
-            "launches_by_path": {"grid_eta_path": grid_eta_launches[name],
-                                 "dense_eta_path": dense_eta_launches[name]},
+            "launches_by_path": by_path,
             "max_abs_err": worst[name][1], "max_rel_err": worst[name][0],
             "shape": t["call"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1654,6 +2064,18 @@ def main():
             "shapes": [{key: r[key] for key in ("call", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")}
                        for r in shapes]})
+    for name, rep, also, path in (
+            ("rhs_cross_fwd", f"{pr}:2218", [f"{pr}:677"], ring),
+            ("rhs_cross_fwd_eta", f"{pr}:2247", [f"{pr}:83"], ring_eta)):
+        t = timing_cross[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources["rhs_self"], "replaces": rep,
+            "also_replaces": also, "launches": path["launches"][name],
+            "launches_by_path": {path["phase"]: path["launches"][name]},
+            "max_abs_err": worst[name][1], "max_rel_err": worst[name][0],
+            "shape": f"{t['M']} x {t['N']}", "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,10 +1,11 @@
-// Fused LDDMM self right-hand side (forward, any eta) and its VJP at eta = 0
-// (backward), for sm_90a.  Plain C interface, loaded with ctypes by
-// difficp_torch/ops/rhs_self.py.
+// Fused LDDMM right-hand side (forward, any eta; rows against columns) and the
+// self VJP at eta = 0 (backward), for sm_90a.  Plain C interface, loaded with
+// ctypes by difficp_torch/ops/rhs_self.py and ops/rhs_cross.py.
 //
 // Notation: u = 1/sigma^2, k_ij = exp(-u |q_i - q_j|^2 / 2), d_ij = q_i - q_j,
 // r2 = |d_ij|^2, c_ij = p_i - p_j, m the point mask.  Per frame b of a batch,
-// rows 0..M-1:
+// rows i = 0..M-1 of (q, p, m) against columns j = 0..N-1 of (qc, pc, mc); the
+// self RHS is the case (qc, pc, mc) = (q, p, m), N = M:
 //
 //   forward   v_i  = m_i sum_j m_j k_ij p_j
 //             w_i  = u m_i sum_j m_j k_ij (p_i.p_j) d_ij           (= -Gq)
@@ -15,7 +16,7 @@
 //             w_i  += eta m_i sum_j m_j k_ij [u^2 (d_ij.c_ij) d_ij - u c_ij]
 //                     - eta^2 u^2 m_i sum_j m_j k_ij (u r2 - (D + 2)) d_ij
 //             dc_i += eta u m_i sum_j m_j k_ij (u r2 - D)
-//   backward  (cotangents a of v, b of w, c of sum_i dc_i)
+//   backward  (self only; cotangents a of v, b of w, c of sum_i dc_i)
 //             dp_l = m_l sum_j m_j k_lj [a_j + u ((b_l-b_j).d_lj) p_j - u c d_lj]
 //             dq_l = m_l u sum_j m_j k_lj [-S_lj d_lj + (p_l.p_j)(b_l-b_j)
 //                                          - c (p_l-p_j)]
@@ -25,23 +26,27 @@
 // Replaces the TPU kernels of difficp_tpu/ops/pallas_reductions.py:
 //   forward:  _rhs_self_sym_mm_kernel (via _rhs_self_fwd_sym_mm),
 //             _rhs_self_sym_pair_kernel mode="fwd" (via _sym_block_tables),
-//             _rhs_self_mm_kernel (via _rhs_self_fwd_mm); and, as the ETA
-//             instance, the any-eta streaming _rhs_self_kernel (via
-//             _rhs_self_fwd_pallas);
+//             _rhs_self_mm_kernel (via _rhs_self_fwd_mm, and between two sets
+//             via _rhs_cross_fwd_mm, the ring rotation's body at eta = 0); and,
+//             as the ETA instance, the any-eta streaming _rhs_self_kernel (via
+//             _rhs_self_fwd_pallas, and between two sets via
+//             _rhs_cross_fwd_stream);
 //   backward: _rhs_self_bwd_mm_kernel (via _rhs_self_bwd_mm),
 //             _rhs_self_sym_pair_kernel mode="bwd" (via _sym_block_grads).
 //
-// What bounds it on an H100: arithmetic.  The function needs 32 FP32
+// What bounds it on an H100: arithmetic.  The self function needs 32 FP32
 // operations per unordered pair forward at d = 2 (15 d + 2, an FMA counted as
 // two, each term shared by (i, j) and (j, i) once) and 71 backward (34 d + 3):
 // see fwd_ops_per_unordered_pair and bwd_ops_per_unordered_pair in
-// ops/rhs_self.py.  It needs one exponential per unordered pair, on the MUFU
-// ex2 unit (16 per SM per clock), which takes about half as long as the FP32
-// work forward.  The bytes moved are O(M d), a few MB.  These kernels take
-// each ordered pair apart instead, 11 d + 5 FP32 operations forward and
-// 29 d + 7 backward per ordered pair, and one exponential each (exp2f of a
-// prescaled argument): at d = 2, 1.69 and 1.83 times the least FP32 work and
-// twice the exponentials.
+// ops/rhs_self.py.  Between two sets no term is shared: 11 d per ordered pair
+// forward (ops/rhs_cross.py, cross_fwd_ops_per_pair).  It needs one
+// exponential per unordered (self) or ordered (cross) pair, on the MUFU ex2
+// unit (16 per SM per clock), which takes about half as long as the FP32
+// work forward.  The bytes moved are O((M + N) d), a few MB.  The kernels
+// take each ordered pair apart, 11 d + 5 FP32 operations forward and 29 d + 7
+// backward, and one exponential each (exp2f of a prescaled argument): for the
+// self RHS at d = 2, 1.69 and 1.83 times the least FP32 work and twice the
+// exponentials.
 //
 // What the design does about it: a direct pair sum.  One thread owns one row
 // and keeps it in registers; a block of 128 rows stages 128-column tiles of the
@@ -53,14 +58,17 @@
 // tables (raw-coordinate monomials fed to the MXU, split-bf16 products, the
 // (8, M) packing) existed to use a matrix unit; the direct form has none of
 // their (R/sigma)^2 cancellation, so neither Morton ordering nor per-block
-// re-centering of the coordinates is needed here.
+// re-centering of the coordinates (the cross forward's _mm_center) is needed
+// here.  The forward kernel takes the column set apart from the rows: the
+// self entry passes its own arrays as both, so the self outputs are those of
+// the kernel before it took two sets, bit for bit.
 //
 // eta is a template switch: the ETA = false instance is the eta = 0 kernel
 // as it was, and the ETA = true instance adds five sums in the same pass
 // (sum k, sum k d, sum k r2, sum k r2 d, sum k (d.c) d) and combines them per
 // row at the end, so at eta = 0 its v, w and dc equal the ETA = false ones
 // bit for bit.  The gradcomponent terms add 24 D + 4 FP32 operations per
-// unordered pair to the function's least work (ops/rhs_self.py,
+// unordered pair to the self function's least work (ops/rhs_self.py,
 // fwd_eta_ops_per_unordered_pair); the kernel adds about 7 D + 3 per ordered
 // pair, and still one exponential.
 
@@ -72,10 +80,11 @@ namespace {
 
 template <int D, bool ETA>
 __global__ void __launch_bounds__(kThreads)
-rhs_self_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
-                    const float* __restrict__ m, float* __restrict__ v,
-                    float* __restrict__ w, float* __restrict__ dc, int M,
-                    float u, int withlogdet, float eta) {
+rhs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
+               const float* __restrict__ m, const float* __restrict__ qc,
+               const float* __restrict__ pc, const float* __restrict__ mc,
+               float* __restrict__ v, float* __restrict__ w, float* __restrict__ dc,
+               int M, int N, float u, int withlogdet, float eta) {
   constexpr int NF = 2 * D + 1;  // record: q_j, p_j, m_j
   constexpr int NV = Record<NF>::kWords;
   __shared__ float4 tile[kThreads * NV];
@@ -84,6 +93,9 @@ rhs_self_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
   q += frame * M * D;
   p += frame * M * D;
   m += frame * M;
+  qc += frame * N * D;
+  pc += frame * N * D;
+  mc += frame * N;
   v += frame * M * D;
   w += frame * M * D;
   dc += frame * M;
@@ -107,16 +119,16 @@ rhs_self_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
 #pragma unroll
   for (int d = 0; d < D; ++d) ekd[d] = ekr2d[d] = ekdc[d] = 0.f;
 
-  for (int base = 0; base < M; base += kThreads) {
+  for (int base = 0; base < N; base += kThreads) {
     const int j = base + threadIdx.x;
     float rec[NF];
-    if (j < M) {
+    if (j < N) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        rec[d] = q[(size_t)j * D + d];
-        rec[D + d] = p[(size_t)j * D + d];
+        rec[d] = qc[(size_t)j * D + d];
+        rec[D + d] = pc[(size_t)j * D + d];
       }
-      rec[2 * D] = m[j];
+      rec[2 * D] = mc[j];
     } else {
 #pragma unroll
       for (int e = 0; e < NF; ++e) rec[e] = 0.f;  // m_j = 0: no contribution
@@ -323,42 +335,63 @@ rhs_self_bwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
   }
 }
 
+int launch_fwd(const void* q, const void* p, const void* m, const void* qc,
+               const void* pc, const void* mc, void* v, void* w, void* dc, int B,
+               int M, int N, int D, float u, int withlogdet, float eta, int use_eta,
+               void* stream) {
+  if (B <= 0 || M <= 0 || N <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + kThreads - 1) / kThreads, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* pf = static_cast<const float*>(p);
+  const auto* mf = static_cast<const float*>(m);
+  const auto* qcf = static_cast<const float*>(qc);
+  const auto* pcf = static_cast<const float*>(pc);
+  const auto* mcf = static_cast<const float*>(mc);
+  auto* vf = static_cast<float*>(v);
+  auto* wf = static_cast<float*>(w);
+  auto* df = static_cast<float*>(dc);
+  if (D == 2 && use_eta) {
+    rhs_fwd_kernel<2, true><<<grid, kThreads, 0, s>>>(qf, pf, mf, qcf, pcf, mcf, vf, wf,
+                                                      df, M, N, u, withlogdet, eta);
+  } else if (D == 2) {
+    rhs_fwd_kernel<2, false><<<grid, kThreads, 0, s>>>(qf, pf, mf, qcf, pcf, mcf, vf, wf,
+                                                       df, M, N, u, withlogdet, 0.f);
+  } else if (D == 3 && use_eta) {
+    rhs_fwd_kernel<3, true><<<grid, kThreads, 0, s>>>(qf, pf, mf, qcf, pcf, mcf, vf, wf,
+                                                      df, M, N, u, withlogdet, eta);
+  } else if (D == 3) {
+    rhs_fwd_kernel<3, false><<<grid, kThreads, 0, s>>>(qf, pf, mf, qcf, pcf, mcf, vf, wf,
+                                                       df, M, N, u, withlogdet, 0.f);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, p: (B, M, D) float32; m: (B, M); v, w: (B, M, D); dc: (B, M) per-row
 // partials of the divergence cost; the gradcomponent terms of eta when use_eta
-// is nonzero (the ETA instance; use_eta = 0 runs the eta = 0 kernel).  Returns
-// cudaGetLastError() after launch.
+// is nonzero (the ETA instance; use_eta = 0 runs the eta = 0 kernel).  The
+// rows are their own columns.  Returns cudaGetLastError() after launch.
 int difficp_rhs_self_fwd_eta(const void* q, const void* p, const void* m, void* v,
                              void* w, void* dc, int B, int M, int D, float u,
                              int withlogdet, float eta, int use_eta, void* stream) {
-  if (B <= 0 || M <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + kThreads - 1) / kThreads, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* pf = static_cast<const float*>(p);
-  const auto* mf = static_cast<const float*>(m);
-  auto* vf = static_cast<float*>(v);
-  auto* wf = static_cast<float*>(w);
-  auto* df = static_cast<float*>(dc);
-  if (D == 2 && use_eta) {
-    rhs_self_fwd_kernel<2, true><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M,
-                                                           u, withlogdet, eta);
-  } else if (D == 2) {
-    rhs_self_fwd_kernel<2, false><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M,
-                                                            u, withlogdet, 0.f);
-  } else if (D == 3 && use_eta) {
-    rhs_self_fwd_kernel<3, true><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M,
-                                                           u, withlogdet, eta);
-  } else if (D == 3) {
-    rhs_self_fwd_kernel<3, false><<<grid, kThreads, 0, s>>>(qf, pf, mf, vf, wf, df, M,
-                                                            u, withlogdet, 0.f);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd(q, p, m, q, p, m, v, w, dc, B, M, M, D, u, withlogdet, eta,
+                    use_eta, stream);
+}
+
+// The rows (qr, pr, mr: (B, M, D), (B, M)) against the columns (qc, pc, mc:
+// (B, N, D), (B, N)); outputs as difficp_rhs_self_fwd_eta's, one per row.
+int difficp_rhs_cross_fwd(const void* qr, const void* pr, const void* mr,
+                          const void* qc, const void* pc, const void* mc, void* v,
+                          void* w, void* dc, int B, int M, int N, int D, float u,
+                          int withlogdet, float eta, int use_eta, void* stream) {
+  return launch_fwd(qr, pr, mr, qc, pc, mc, v, w, dc, B, M, N, D, u, withlogdet, eta,
+                    use_eta, stream);
 }
 
 // a, b: cotangents of v and w, (B, M, D); gc: (B,) cotangent of each frame's

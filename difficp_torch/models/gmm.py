@@ -11,6 +11,9 @@
   contributes exactly zero to every sum.
 - Above the dense pair limit (N C entries) the E step streams point tiles
   instead of materializing (N, C).
+- With a process ``group`` the points are this rank's shard: the M-step
+  statistics and the free-energy sums are all-reduced over the group, so
+  every rank applies the same update (the JAX package's ``axis_name``).
 """
 
 from __future__ import annotations
@@ -188,15 +191,26 @@ def _em_values(new: GMMState, old: GMMState, e: EStepOut, x, mask, cfg: GMMConfi
     return y, cfe_local, quad_local
 
 
-def _em_step_dense(state, x, mask, cfg, skip_m):
+def _group_sum(group, *ts):
+    """Each tensor summed over the ranks of ``group`` (None: as it is)."""
+    if group is None:
+        return ts
+    from difficp_torch.parallel.launch import all_reduce
+
+    return tuple(all_reduce(t, group) for t in ts)
+
+
+def _em_step_dense(state, x, mask, cfg, skip_m, group):
     d = x.shape[1]
     e = _e_step(state, x, cfg)
-    new = state if skip_m else _apply_stats(state, _m_stats(e, x, mask), cfg, d)
+    new = state if skip_m else _apply_stats(
+        state, MStats(*_group_sum(group, *_m_stats(e, x, mask))), cfg, d)
     y, cfe, quad = _em_values(new, state, e, x, mask, cfg)
+    cfe, quad = _group_sum(group, cfe, quad)
     return EMStepOut(state=new, y=y, cfe=cfe, fe=cfe + quad, gamt=e.gamt)
 
 
-def _em_step_tiled(state, x, mask, cfg, skip_m, tile):
+def _em_step_tiled(state, x, mask, cfg, skip_m, tile, group):
     """EM step streamed over point tiles: the (N, C) responsibilities are
     only ever held as (tile, C) blocks.  Pass 1 sums the M-step statistics
     with the old parameters; pass 2 recomputes the E step per tile and emits
@@ -210,7 +224,7 @@ def _em_step_tiled(state, x, mask, cfg, skip_m, tile):
         for lo, hi in bounds:
             s = _m_stats(_e_step(state, x[lo:hi], cfg), x[lo:hi], mask[lo:hi])
             stats = s if stats is None else MStats(*(a + b for a, b in zip(stats, s)))
-        new = _apply_stats(state, stats, cfg, d)
+        new = _apply_stats(state, MStats(*_group_sum(group, *stats)), cfg, d)
     ys, gamts = [], []
     cfe = quad = torch.zeros((), dtype=x.dtype, device=x.device)
     for lo, hi in bounds:
@@ -220,23 +234,27 @@ def _em_step_tiled(state, x, mask, cfg, skip_m, tile):
         gamts.append(e.gamt)
         cfe = cfe + cfe_l
         quad = quad + quad_l
+    cfe, quad = _group_sum(group, cfe, quad)
     return EMStepOut(state=new, y=torch.cat(ys), cfe=cfe, fe=cfe + quad,
                      gamt=torch.cat(gamts))
 
 
 def em_step(state: GMMState, x, mask: Optional[torch.Tensor], cfg: GMMConfig,
-            skip_m: bool = False, tile: Optional[int] = None) -> EMStepOut:
+            skip_m: bool = False, tile: Optional[int] = None,
+            group=None) -> EMStepOut:
     """One (E step, M step) alternation + EM values Y / Cfe / FE (GMM.py:236-325;
     post-M values use the updated parameters, GMM.py:462-496).  ``skip_m``
     computes values only.  Above the dense pair limit (N C entries) the E step
-    streams tiles of 8192 points; ``tile`` forces a tile size."""
+    streams tiles of 8192 points; ``tile`` forces a tile size.  With a
+    process ``group``, x and mask are this rank's shard and the M-step
+    statistics and the Cfe / quad sums are all-reduced over the group."""
     if mask is None:
         mask = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
     if tile is not None:
-        return _em_step_tiled(state, x, mask, cfg, skip_m, tile)
+        return _em_step_tiled(state, x, mask, cfg, skip_m, tile, group)
     if _backend._use_dense(x.shape[0], state.mu.shape[0]):
-        return _em_step_dense(state, x, mask, cfg, skip_m)
-    return _em_step_tiled(state, x, mask, cfg, skip_m, tile=8192)
+        return _em_step_dense(state, x, mask, cfg, skip_m, group)
+    return _em_step_tiled(state, x, mask, cfg, skip_m, 8192, group)
 
 
 class EMOptOut(NamedTuple):

@@ -424,21 +424,27 @@ def rhs_self_bwd_poly(q, p, mask, gv, gg, gc, sigma, eta):
     return out[..., :d], out[..., d:2 * d]
 
 
+def _col_side_polys(s, d, u):
+    """The column side's gradient polynomials of L = sum_ij k S, relabeled
+    through the swapped density so each is a row-indexed kernel-sum with the
+    column set as rows (its delta is q_col - q_row)."""
+    sw = s.swap()
+    delta = [_q(e, 0) - _q(e, 1) for e in range(d)]
+    col = {f"dq{e}": sw.diff(f"q{e}", 0) - u * (delta[e] * sw) for e in range(d)}
+    col.update({f"dp{e}": sw.diff(f"p{e}", 0) for e in range(d)})
+    return col
+
+
 def _ext_bwd_polys(d, sigma, eta):
     u = 1.0 / (float(sigma) ** 2)
     key = ("ext", d, float(sigma), float(eta))
     if key not in _POLY_CACHE:
         s = _rhs_pair_density(d, u, float(eta), self_pair=False)
-        # rows = data points x (outputs dx); cols = support (q, p)
+        # rows = data points x (outputs dx); cols = support (q, p), whose
+        # outputs evaluate in the reverse direction (rows = q)
         row = _grad_polys(s, d, u, sides=("row",))
         dx = {f"dx{e}": row[f"dq{e}"] for e in range(d)}
-        # support-side outputs evaluate in the reverse direction: rows = q;
-        # the delta of the swapped density is q_support - x
-        sw = s.swap()
-        delta_sw = [_q(e, 0) - _q(e, 1) for e in range(d)]
-        dqp = {f"dq{e}": sw.diff(f"q{e}", 0) - u * (delta_sw[e] * sw) for e in range(d)}
-        dqp.update({f"dp{e}": sw.diff(f"p{e}", 0) for e in range(d)})
-        _POLY_CACHE[key] = (dx, dqp)
+        _POLY_CACHE[key] = (dx, _col_side_polys(s, d, u))
     return _POLY_CACHE[key]
 
 
@@ -460,3 +466,94 @@ def rhs_ext_bwd_poly(q, p, x, mask_q, mask_x, gx, gc, sigma, eta):
     dx = _eval(dx_polys, x, q, xvals, qvals, sigma)
     out = _eval(dqp_polys, q, x, qvals, xvals, sigma)
     return out[..., :d], out[..., d:2 * d], dx
+
+
+# ---------------------------------------------------------------------------
+# the ring's cross ops (parallel/ring.py): rows and columns are different sets
+# ---------------------------------------------------------------------------
+
+def _cross_bwd_polys(d, sigma, eta):
+    """Backward polynomials of the cross fused RHS: the row outputs (dq, dp
+    of the rows, which hold the cotangents gv, gg, gc) and the column outputs
+    (of the rotating shard), kept apart."""
+    key = ("cross", d, float(sigma), float(eta))
+    if key not in _POLY_CACHE:
+        u = 1.0 / (float(sigma) ** 2)
+        s = _rhs_pair_density(d, u, float(eta), self_pair=True)
+        _POLY_CACHE[key] = (_grad_polys(s, d, u, sides=("row",)), _col_side_polys(s, d, u))
+    return _POLY_CACHE[key]
+
+
+def rhs_cross_bwd_poly(qr, pr, mr, qc, pc, mc, gv, gg, gc, sigma, eta):
+    """(dq_row, dp_row, dq_col, dp_col) of the cross fused RHS for any eta,
+    the generated backward: one kernel-sum with the rows as rows, one with
+    the columns as rows.  The caller centers both sides by one shift; gc is
+    the per-frame cotangent of dc."""
+    d = qr.shape[-1]
+    row_polys, col_polys = _cross_bwd_polys(d, sigma, eta)
+    zc = mc.new_zeros(mc.shape)
+    rvals = _coords({"m": mr, "C": _frame_scalar(gc, mr)}, qr, pr)
+    cvals = _coords({"m": mc, "C": zc}, qc, pc)
+    for e in range(d):
+        rvals[f"g{e}"] = gv[..., e]
+        rvals[f"h{e}"] = gg[..., e]
+        cvals[f"g{e}"] = zc
+        cvals[f"h{e}"] = zc
+    out_r = _eval(row_polys, qr, qc, rvals, cvals, sigma)
+    out_c = _eval(col_polys, qc, qr, cvals, rvals, sigma)
+    return out_r[..., :d], out_r[..., d:2 * d], out_c[..., :d], out_c[..., d:2 * d]
+
+
+def _ham_density(d, u, eta):
+    """Pair density of the cross Hamiltonian share (reference
+    LDDMM.py:142-159):
+    sum_ij k m_i m_j [1/2 (p_i.p_j) + eta u (p_i.delta) - 1/2 eta^2 u (d2 u - d)]."""
+    delta = [_q(e, 0) - _q(e, 1) for e in range(d)]
+    d2 = _dot_bp(delta, delta)
+    rp = [BP.rvar(f"p{e}") for e in range(d)]
+    cp = [BP.cvar(f"p{e}") for e in range(d)]
+    s = 0.5 * _dot_bp(rp, cp)
+    if eta:
+        s = s + (eta * u) * _dot_bp(rp, delta)
+        s = s - (0.5 * eta * eta * u) * (u * d2 - d)
+    return BP.rvar("m") * BP.cvar("m") * s
+
+
+def _ham_cross_polys(d, sigma, eta):
+    """(row, col): the value h with the row side's gradient in one direction,
+    the column side's gradient in the other."""
+    key = ("hamx", d, float(sigma), float(eta))
+    if key not in _POLY_CACHE:
+        u = 1.0 / (float(sigma) ** 2)
+        s = _ham_density(d, u, float(eta))
+        row = _grad_polys(s, d, u, sides=("row",))
+        row["h"] = s
+        _POLY_CACHE[key] = (row, _col_side_polys(s, d, u))
+    return _POLY_CACHE[key]
+
+
+def _ham_value_polys(d, sigma, eta):
+    key = ("hamx_value", d, float(sigma), float(eta))
+    if key not in _POLY_CACHE:
+        _POLY_CACHE[key] = {"h": _ham_cross_polys(d, sigma, eta)[0]["h"]}
+    return _POLY_CACHE[key]
+
+
+def hamiltonian_cross_poly(qr, pr, mr, qc, pc, mc, sigma, eta, grad_sides=()):
+    """The cross Hamiltonian share H(rows; columns) per frame and, for each
+    of "row" / "col" in ``grad_sides``, that side's gradient (dq_*, dp_*).
+    The caller centers both sides by one shift."""
+    d = qr.shape[-1]
+    row_polys, col_polys = _ham_cross_polys(d, sigma, eta)
+    rvals = _coords({"m": mr}, qr, pr)
+    cvals = _coords({"m": mc}, qc, pc)
+    want = row_polys if "row" in grad_sides else _ham_value_polys(d, sigma, eta)
+    out_r = _eval(want, qr, qc, rvals, cvals, sigma)
+    names = list(want)
+    res = {"h": out_r[..., names.index("h")].sum(-1)}
+    if "row" in grad_sides:
+        res["dq_row"], res["dp_row"] = out_r[..., :d], out_r[..., d:2 * d]
+    if "col" in grad_sides:
+        out_c = _eval(col_polys, qc, qr, cvals, rvals, sigma)
+        res["dq_col"], res["dp_col"] = out_c[..., :d], out_c[..., d:2 * d]
+    return res

@@ -128,33 +128,35 @@ def _chunk_rows(m_cols: int, d: int, budget: int = 1 << 24) -> int:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _pair_block(q, m, lo, hi, u):
-    """d (..., c, M, D) and k (..., c, M) with m_j folded in, rows lo:hi."""
-    d = q[..., lo:hi, None, :] - q[..., None, :, :]
+def _pair_block(q, m, lo, hi, u, qc=None):
+    """d (..., c, N, D) and k (..., c, N) with m_j folded in, rows lo:hi of q
+    against the columns qc (q itself by default) with their mask m."""
+    d = q[..., lo:hi, None, :] - (q if qc is None else qc)[..., None, :, :]
     k = torch.exp(-0.5 * u * (d * d).sum(-1)) * m[..., None, :]
     return d, k
 
 
-def rhs_self_fwd_reference(q, p, m, sigma, withlogdet, eta=0.0):
-    """Plain version of the forward kernel: (v, w, per-row dcost partials),
-    with the gradcomponent terms when eta != 0."""
+def fwd_reference(q, p, m, qc, pc, mc, sigma, withlogdet, eta=0.0):
+    """Plain version of the forward kernel between the rows (q, p, m) and the
+    columns (qc, pc, mc): (v, w, per-row dcost partials), with the
+    gradcomponent terms when eta != 0.  Chunked over rows."""
     u = 1.0 / (sigma * sigma)
     mm, dim = q.shape[-2], q.shape[-1]
-    chunk = _chunk_rows(mm, 2 * dim)
+    chunk = _chunk_rows(qc.shape[-2], 2 * dim)
     vs, ws, dcs = [], [], []
     for lo in range(0, mm, chunk):
         hi = min(lo + chunk, mm)
-        d, k = _pair_block(q, m, lo, hi, u)
+        d, k = _pair_block(q, mc, lo, hi, u, qc)
         pi = p[..., lo:hi, :]
         mi = m[..., lo:hi, None]
-        v = k @ p
-        kpp = k * (pi @ p.transpose(-1, -2))
+        v = k @ pc
+        kpp = k * (pi @ pc.transpose(-1, -2))
         w = u * (kpp[..., None] * d).sum(-2)
         pd = (pi[..., None, :] * d).sum(-1)
         dc = -u * (k * pd).sum(-1)
         if eta != 0.0:
             r2 = (d * d).sum(-1)
-            c = pi[..., None, :] - p[..., None, :, :]
+            c = pi[..., None, :] - pc[..., None, :, :]
             kdc = k * (d * c).sum(-1)
             lap = k * (u * r2 - (dim + 2))
             v = v + eta * u * (k[..., None] * d).sum(-2)
@@ -166,6 +168,12 @@ def rhs_self_fwd_reference(q, p, m, sigma, withlogdet, eta=0.0):
         ws.append(mi * w)
         dcs.append(m[..., lo:hi] * dc if withlogdet else torch.zeros_like(m[..., lo:hi]))
     return torch.cat(vs, -2), torch.cat(ws, -2), torch.cat(dcs, -1)
+
+
+def rhs_self_fwd_reference(q, p, m, sigma, withlogdet, eta=0.0):
+    """Plain version of the forward kernel: (v, w, per-row dcost partials),
+    with the gradcomponent terms when eta != 0."""
+    return fwd_reference(q, p, m, q, p, m, sigma, withlogdet, eta)
 
 
 def rhs_self_bwd_reference(q, p, m, a, b, c, sigma, withlogdet):

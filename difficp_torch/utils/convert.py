@@ -8,6 +8,10 @@ names both packages use; a GMM is a dict of its five fields and the curvature
 memory a dict of the ``LBFGSMemory`` fields.  The support travels as
 ``support_scheme`` and ``rho`` beside the ``q0`` / ``qmask`` arrays, so a
 grid-support state continues with the same grid.
+
+``twoset_out_from_numpy`` takes the state between two point-sharded two-set
+steps (the JAX package's ``TwosetStepOut``, gathered) to one rank's
+``parallel.twoset.TwosetStepOut``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,43 @@ def memory_from_numpy(mem: dict, device) -> LBFGSMemory:
         rho=as_tensor(mem["rho"], device),
         pos=as_tensor(mem["pos"], device, torch.long),
         count=as_tensor(mem["count"], device, torch.long))
+
+
+def twoset_out_from_numpy(out: dict, rank: int, world: int, device):
+    """This rank's ``TwosetStepOut`` from the JAX package's ``TwosetStepOut``
+    fields as numpy: ``gmm`` (a dict of the GMMState fields), the point arrays
+    ``a0``, ``x1`` (and ``y``) of the whole set, cut as ``shard_twoset`` cuts
+    them, the scalars ``alpha`` (and ``cfe``, ``fe``, ``trajl``, ``quad``)
+    and ``memory`` (a dict of the LBFGSMemory fields with S, Y (m, n) over
+    the whole raveled momenta, or None).  Missing entries are None."""
+    from difficp_torch.parallel.twoset import TwosetStepOut, rank_block
+
+    def block(a):
+        return as_tensor(rank_block(a, rank, world), device).contiguous()
+
+    def scalar(name):
+        return None if out.get(name) is None else as_tensor(out[name], device)
+
+    a0 = out["a0"]
+    mem = out.get("memory")
+    if mem is not None:
+        m = mem["S"].shape[0]
+
+        def rows(t):  # (m, n) over the whole set -> (1, m, this rank's n)
+            return block(t.reshape(m, *a0.shape).swapaxes(0, 1)).swapaxes(0, 1).reshape(
+                1, m, -1).contiguous()
+
+        mem = LBFGSMemory(S=rows(mem["S"]), Y=rows(mem["Y"]),
+                          rho=as_tensor(mem["rho"], device)[None],
+                          pos=as_tensor(mem["pos"], device, torch.long).reshape(1),
+                          count=as_tensor(mem["count"], device, torch.long).reshape(1))
+    g = out["gmm"]
+    return TwosetStepOut(
+        gmm=gmm_state_from_numpy(g["mu"], g["w"], g["sigma"], g["eta0"], g["vol0"], device),
+        a0=block(a0), x1=block(out["x1"]),
+        y=None if out.get("y") is None else block(out["y"]),
+        cfe=scalar("cfe"), fe=scalar("fe"), trajl=scalar("trajl"), quad=scalar("quad"),
+        alpha=scalar("alpha"), memory=mem)
 
 
 def load_psr_state(psr, arrays: dict):

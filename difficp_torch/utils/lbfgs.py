@@ -23,6 +23,14 @@ Contract (reference optim.py:10-110, as in the JAX package):
 per-lane values (K,) (and an aux pytree of per-lane tensors with
 ``has_aux``).  Lanes must be independent: the gradient of the sum of the
 values is each lane's own gradient.
+
+With a process ``group`` the parameters are this rank's shard of a sharded
+vector and the loss is the group's (the same on every rank): every dot
+product is summed over the group, the infinity norms are its maximum and the
+sizes count its whole vector, so every scalar that steers a branch is the
+group's and every rank takes the same decisions (the collectives XLA inserts
+for the JAX package's L-BFGS on sharded arrays).  The finiteness masks of the
+gradient are elementwise and steer no branch.
 """
 
 from __future__ import annotations
@@ -149,7 +157,7 @@ def _clip(x, lo, hi):
 
 
 def _linesearch(vg, max_steps, errthresh, x, fx, gx, d, a1,
-                best_x, best_f, best_g, best_aux):
+                best_x, best_f, best_g, best_aux, dot=_dot):
     """Strong-Wolfe line search, one batched ``vg`` evaluation per iteration.
 
     Invariants: (a_lo, f_lo, dg_lo, g_lo) is the best Armijo-satisfying point
@@ -157,7 +165,7 @@ def _linesearch(vg, max_steps, errthresh, x, fx, gx, d, a1,
     Trials with non-finite or aberrant loss fail Armijo and shrink the
     bracket; a divergent trial met while bracketing backs off by 1/64.
     """
-    dg0 = _dot(gx, d)
+    dg0 = dot(gx, d)
     descent = torch.isfinite(dg0) & (dg0 < 0)
     kk = fx.shape[0]
     dev = fx.device
@@ -182,7 +190,7 @@ def _linesearch(vg, max_steps, errthresh, x, fx, gx, d, a1,
         a_hi, f_hi, dg_hi = c["a_hi"], c["f_hi"], c["dg_hi"]
         xa = x + a[:, None] * d
         fa, aux, ga = vg(xa)
-        dga = _dot(ga, d)
+        dga = dot(ga, d)
         okf = torch.isfinite(fa) & (fa <= errthresh)
         # best-so-far at every evaluation (reference optim.py:34-47)
         bb = okf & (fa < c["bf"])
@@ -249,7 +257,7 @@ def _linesearch(vg, max_steps, errthresh, x, fx, gx, d, a1,
             c["baux"], c["k"])
 
 
-def _two_loop(g, S, Y, rho, pos, count, m: int):
+def _two_loop(g, S, Y, rho, pos, count, m: int, dot=_dot):
     """L-BFGS two-loop recursion over each lane's circular memory; masked
     for a partially filled memory; newest-pair gamma scaling."""
     lanes = torch.arange(g.shape[0], device=g.device)
@@ -258,20 +266,20 @@ def _two_loop(g, S, Y, rho, pos, count, m: int):
     als = []
     for j, kj in enumerate(idx):
         valid = j < count
-        al = torch.where(valid, rho[lanes, kj] * _dot(S[lanes, kj], q),
+        al = torch.where(valid, rho[lanes, kj] * dot(S[lanes, kj], q),
                          torch.zeros_like(q[:, 0]))
         q = q - al[:, None] * Y[lanes, kj]
         als.append(al)
     newest = (pos - 1) % m
-    sy = _dot(S[lanes, newest], Y[lanes, newest])
-    yy = _dot(Y[lanes, newest], Y[lanes, newest])
+    sy = dot(S[lanes, newest], Y[lanes, newest])
+    yy = dot(Y[lanes, newest], Y[lanes, newest])
     gamma = torch.where(count > 0, sy / torch.clamp_min(yy, 1e-30),
                         torch.ones_like(sy))
     r = gamma[:, None] * q
     for j in reversed(range(m)):
         kj = idx[j]
         valid = j < count
-        beta = torch.where(valid, rho[lanes, kj] * _dot(Y[lanes, kj], r),
+        beta = torch.where(valid, rho[lanes, kj] * dot(Y[lanes, kj], r),
                            torch.zeros_like(r[:, 0]))
         r = r + (als[j] - beta)[:, None] * S[lanes, kj]
     return -r
@@ -294,6 +302,7 @@ def lbfgs_optimize(
     grad0=None,
     aux0=None,
     stall0=None,
+    group=None,
 ) -> LBFGSResult:
     """Minimize ``lossfn(params)`` per lane, starting from ``p0`` (K, ...).
 
@@ -303,7 +312,9 @@ def lbfgs_optimize(
     ``value0``/``grad0`` (both or neither, with ``aux0`` under ``has_aux``):
     loss and gradient AT ``p0`` on the IDENTICAL objective; skips the entry
     evaluation.  ``stall0``: lanes frozen by a previous call on the same
-    objective make no evaluation.
+    objective make no evaluation.  ``group``: p0 is this rank's shard and
+    the reductions are the group's (module docstring); the memory holds the
+    shard's (s, y) pairs.
     """
     if (value0 is None) != (grad0 is None):
         raise ValueError("value0 and grad0 must be given together")
@@ -315,6 +326,18 @@ def lbfgs_optimize(
     n = x0.shape[1]
     m = int(memory_size)
     dev = x0.device
+    if group is None:
+        dot, inf_norm, n_all = _dot, (lambda t: t.abs().amax(-1)), n
+    else:
+        from difficp_torch.parallel.launch import all_reduce
+
+        def dot(a, b):
+            return all_reduce(_dot(a, b), group)
+
+        def inf_norm(t):
+            return all_reduce(t.abs().amax(-1), group, "max")
+
+        n_all = int(all_reduce(torch.tensor(float(n), device=dev), group))
     vg = _value_and_grad(lossfn, shape, has_aux)
     errthresh = torch.tensor(errthresh, dtype=x0.dtype, device=dev)
 
@@ -326,7 +349,7 @@ def lbfgs_optimize(
         f0, baux0, g0 = vg(x0)
     fd = f0.dtype
     g0c = torch.where(torch.isfinite(g0), g0, torch.zeros_like(g0))
-    gnorm = torch.sqrt(_dot(g0c, g0c))
+    gnorm = torch.sqrt(dot(g0c, g0c))
     seed = torch.minimum(torch.ones_like(gnorm), 1.0 / torch.clamp_min(gnorm, 1e-12))
     seed = torch.where(torch.isfinite(seed), seed, torch.ones_like(seed)).float()
     a0v = _scal(alpha0, kk, torch.float32, dev, 0.0)
@@ -350,8 +373,8 @@ def lbfgs_optimize(
     def inner_step(c, active):
         g_clean = torch.where(torch.isfinite(c["gx"]), c["gx"],
                               torch.zeros_like(c["gx"]))
-        d = _two_loop(g_clean, c["S"], c["Y"], c["rho"], c["pos"], c["count"], m)
-        dg = _dot(g_clean, d)
+        d = _two_loop(g_clean, c["S"], c["Y"], c["rho"], c["pos"], c["count"], m, dot)
+        dg = dot(g_clean, d)
         # non-descent quasi-Newton direction: steepest descent
         d = torch.where(_lane(dg < 0, d), d, -g_clean)
         # a frozen lane searches nothing (zero direction = no descent)
@@ -359,7 +382,7 @@ def lbfgs_optimize(
         a1 = torch.where(c["count"] == 0, alpha_h.to(fd), c["aqn"].to(fd))
         acc_a, acc_f, acc_g, acc_ok, bx, bf, bg, baux, ls_k = _linesearch(
             vg, ls_steps, errthresh, c["x"], c["fx"], c["gx"], d, a1,
-            c["bx"], c["bf"], c["bg"], c["baux"])
+            c["bx"], c["bf"], c["bg"], c["baux"], dot)
         fx, gx, aqn = c["fx"], c["gx"], c["aqn"]
         # only true strong-Wolfe accepts with real relative progress move the
         # adaptive trial scale; /256 per-update shrink clamp
@@ -372,9 +395,9 @@ def lbfgs_optimize(
             aqn)
         s = acc_a[:, None] * d
         y = acc_g - gx
-        sy = _dot(s, y)
-        sn = torch.sqrt(_dot(s, s))
-        yn = torch.sqrt(_dot(y, y))
+        sy = dot(s, y)
+        sn = torch.sqrt(dot(s, s))
+        yn = torch.sqrt(dot(y, y))
         good = ((acc_a > _ALPHA_DEGENERATE) & torch.isfinite(sy)
                 & (sy > 1e-10 * torch.clamp_min(sn * yn, 1e-30)))
         rho_new = 1.0 / torch.clamp_min(sy, 1e-30)
@@ -395,8 +418,8 @@ def lbfgs_optimize(
             acc_a.float(), c["a_first"])
         # torch inner stopping rule (LBFGS defaults, reference optim.py:27)
         df = fx - acc_f
-        step_inf = s.abs().amax(-1)
-        g_inf = acc_g.abs().amax(-1)
+        step_inf = inf_norm(s)
+        g_inf = inf_norm(acc_g)
         stopped = (((df <= _TOL_CHANGE) & (step_inf <= _TOL_CHANGE))
                    | (g_inf <= _TOL_GRAD))
         return dict(c, x=c["x"] + s, fx=acc_f, gx=acc_g, S=S_, Y=Y_, rho=rho_,
@@ -429,8 +452,8 @@ def lbfgs_optimize(
         for _ in range(inner):
             b = inner_step(b, active)
         dx = b["x"] - prev
-        b["change"] = torch.sqrt(_dot(dx, dx) / max(n, 1)).float()
-        b["ref"] = torch.sqrt(_dot(prev, prev) / max(n, 1)).float()
+        b["change"] = torch.sqrt(dot(dx, dx) / max(n_all, 1)).float()
+        b["ref"] = torch.sqrt(dot(prev, prev) / max(n_all, 1)).float()
         b["i"] = c["i"] + 1
         c = {key: _sel(active, b[key], c[key]) for key in c}
 

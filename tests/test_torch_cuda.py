@@ -462,3 +462,111 @@ def test_eta_shoot_on_card_matches_dense_and_counts_launches(cuda):
                         "rhs_ext_fwd": 0, "rhs_ext_bwd_dx": 0, "rhs_ext_bwd_dqdp": 0,
                         "rhs_ext_fwd_eta": 4, "ksum": 3 * 4 + 1}
 
+
+
+def _cross_inputs(b, m, n, d, seed, device):
+    """Rows and columns from two different box clouds, each with a ragged
+    mask and a padded tail."""
+    q, p, mq, *_ = _inputs(b, m, d, seed, device)
+    qc, pc, mc, *_ = _inputs(b, n, d, seed + 100, device)
+    return q, p, mq, qc + 0.1, pc, mc
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("withlogdet", [True, False])
+@pytest.mark.parametrize("eta", [0.0, ETA])
+def test_cross_kernel_matches_plain(cuda, d, withlogdet, eta):
+    """The cross forward kernel (rows against a different column set; its
+    ETA instance at eta != 0) against its plain version in float64, 3,001
+    rows against 2,003 columns, two frames."""
+    from difficp_torch.ops import rhs_cross as RC
+
+    args = _cross_inputs(2, 3001, 2003, d, seed=d, device=cuda)
+    v, w, dc = RC.rhs_cross_fwd(*args, SIG, withlogdet, eta)
+    torch.cuda.synchronize()
+    rv, rw, rdc = RC.rhs_cross_fwd_reference(*(t.double() for t in args), SIG, withlogdet, eta)
+    _close(v, rv, TOL_FWD)
+    _close(w, rw, TOL_FWD)
+    assert float((dc.double().sum(-1) - rdc.sum(-1)).abs().max()) <= TOL_FWD * float(
+        rdc.abs().sum(-1).max())
+    assert bool((v[args[2] == 0] == 0).all())
+
+
+def test_cross_entry_keeps_the_self_outputs(cuda):
+    """The cross entry with a set as its own columns gives the self entry's
+    outputs bit for bit, at eta = 0 and at eta != 0; the ETA instance at eta
+    = 0 gives the eta = 0 instance's; one count per launch, by instance."""
+    from difficp_torch.ops import rhs_cross as RC
+
+    q, p, m, qc, pc, mc = _cross_inputs(2, 2000, 1500, 2, seed=4, device=cuda)
+    for counts in (RS.launches, RC.launches):
+        for key in counts:
+            counts[key] = 0
+    for wl in (True, False):
+        for eta, use_eta in ((0.0, False), (ETA, True)):
+            a = RS.launch_fwd(q, p, m, SIG, wl, eta, use_eta)
+            b = RC.launch_fwd(q, p, m, q, p, m, SIG, wl, eta, use_eta)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+        c = RC.launch_fwd(q, p, m, qc, pc, mc, SIG, wl, 0.0, False)
+        e = RC.launch_fwd(q, p, m, qc, pc, mc, SIG, wl, 0.0, True)
+        for x, y in zip(c, e):
+            assert torch.equal(x, y)
+    assert RC.launches == {"rhs_cross_fwd": 4, "rhs_cross_fwd_eta": 4}
+    assert RS.launches == {"rhs_self_fwd": 2, "rhs_self_bwd": 0, "rhs_self_fwd_eta": 2}
+
+
+def test_cross_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from difficp_torch.ops import rhs_cross as RC
+
+    q, p, m, qc, pc, mc = _cross_inputs(1, 64, 48, 2, seed=2, device=cuda)
+    with pytest.raises(ValueError):
+        RC.rhs_cross_fwd(q, p, m, qc.double(), pc, mc, SIG, True)
+    with pytest.raises(ValueError):
+        RC.rhs_cross_fwd(q, p, m, qc, pc, mc[..., :-1], SIG, True)
+    with pytest.raises(ValueError):
+        RC.rhs_cross_fwd(q, p, m, qc.cpu(), pc.cpu(), mc.cpu(), SIG, True)
+    with pytest.raises(ValueError):
+        RC.rhs_cross_fwd(q, p, m, qc[..., :1].contiguous(), pc[..., :1].contiguous(), mc,
+                         SIG, True)
+
+
+@pytest.mark.parametrize("eta", [0.0, ETA])
+def test_ring_loss_on_card_matches_cpu_and_counts_launches(cuda, eta):
+    """The sharded registration loss and its gradient at a world of one over
+    NCCL on the card against the same loss on the CPU (the plain versions)
+    in float64, 600 points, nt = 3; per loss+grad nt cross forwards and
+    2 nt + 3 kernel-sums (the generated backward's two directions per step,
+    the Hamiltonian's value and its two gradient directions)."""
+    import torch.distributed as dist
+
+    from difficp_torch.ops import ksum as KS
+    from difficp_torch.ops import rhs_cross as RC
+    from difficp_torch.parallel import init_distributed, make_sharded_reg_loss
+
+    q0, a0, mask, y, *_ = _inputs(1, 600, 2, seed=6, device=cuda)
+    q0, a0, mask, y = q0[0], 0.05 * a0[0] * mask[0, :, None], mask[0], q0[0] + 0.05 * y[0]
+    w = torch.linspace(0.2, 1.0, 600, device=cuda)
+    cfg = lddmm.make_config(sigma=SIG, lambd=200.0, version="logdet" if eta else "hybrid",
+                            nt=3, scheme="Euler")
+    group, size, _ = init_distributed("cuda")
+    try:
+        assert size == 1 and dist.get_backend(group) == "nccl"
+        res = {}
+        for dev, grp in ((cuda, group), (torch.device("cpu"), None)):
+            args = [t.to(dev) if dev.type == "cuda" else t.cpu().double()
+                    for t in (a0, q0, y, w, mask)]
+            a = args[0].clone().requires_grad_(True)
+            for counts in (RC.launches, KS.launches):
+                for key in counts:
+                    counts[key] = 0
+            loss = make_sharded_reg_loss(cfg, grp)(a, *args[1:], 0.01)
+            res[dev.type] = (loss.detach(), torch.autograd.grad(loss, a)[0])
+            if dev.type == "cuda":
+                launches = {**RC.launches, **KS.launches}
+    finally:
+        dist.destroy_process_group()
+    _close(res["cuda"][0], res["cpu"][0], TOL_BWD)
+    _close(res["cuda"][1], res["cpu"][1], 1e-3)
+    name = "rhs_cross_fwd_eta" if eta else "rhs_cross_fwd"
+    assert launches == {"rhs_cross_fwd": 0, "rhs_cross_fwd_eta": 0, name: 3, "ksum": 2 * 3 + 3}
