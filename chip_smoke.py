@@ -39,7 +39,8 @@ Phases, each printing JSON lines with its seconds:
  11. check eta   the gradcomponent (eta != 0) slice's kernels against their
                  plain versions in float64: the generic kernel-sum (ksum) at
                  3, 6, 9, 20 and 121 columns (d = 2) and 333 (d = 3), masked,
-                 several frames, a shared y and a split y axis; the ETA
+                 several frames, a shared y and a split y axis, and at its
+                 tile edges (1, 8, 128, 129 columns; 15, 16, 17 rows); the ETA
                  instances of the self and ext forward kernels; the ETA
                  instances at eta = 0 against the eta = 0 instances, bit for
                  bit;
@@ -47,7 +48,11 @@ Phases, each printing JSON lines with its seconds:
                  held against its float64 plain version there, then timed
                  beside its plain version and its bound;
  13. grid eta path  the grid main path with gradcomponent_LDDMM (version
-                 "logdet", eta = 1/500);
+                 "logdet", eta = 1/500), from start momenta computed with the
+                 kernel-sum's float64 plain version, so that the sequence it
+                 prints depends on the kernels only along the trajectory;
+                 at its end the objective and its gradient through ksum
+                 against those through the float64 plain version;
  14. dense eta path  examples/run_large.py's configuration with version
                  "logdet" (eta = 1/200) at N = 8,192, driven as
                  run_large.main drives DiffPSR; before it, the stability of
@@ -71,7 +76,9 @@ Phases, each printing JSON lines with its seconds:
                  self entry, bit for bit;
  19. timing cross each instance at its ring path's shape, held against its
                  plain version there, then timed beside it and its bound; the
-                 same for ksum at the generated cross backward's two shapes;
+                 same for ksum at every kernel-sum of both ring paths (the
+                 generated cross backward's two tables, the cross
+                 Hamiltonian's three);
  20. ring twoset path  the point-sharded two-set registration
                  (parallel/twoset.py over parallel/ring.py) at world size 1
                  over NCCL on run_large's problem at 65,536 points: two
@@ -95,6 +102,7 @@ difficp_torch package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -115,6 +123,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12
 PEAK_EX2_PER_S = PEAK_FP32_FLOPS * 16 / 256
 PEAK_BYTES_PER_S = 3.35e12
+# dense TF32 on the tensor cores (NVIDIA data sheet): the kernel-sum's
+# products run there
+PEAK_TF32_FLOPS = 495e12
 
 # float32 pair sums over up to 65,536 terms, taken in another order than the
 # plain version: relative to the largest |plain| output
@@ -155,8 +166,29 @@ POLY_ERR_LOG = 1e-2
 # column set apart from its rows: the self kernels are unchanged if the paths
 # that run them print them again bit for bit
 DENSE_FE_BEFORE = [-134942.6875, -135171.546875]
-GRID_ETA_FE_BEFORE = [-2286069.75, -5406257.0, -6699564.0]
-DENSE_ETA_FE_BEFORE = [-16924.4140625] * 3 + [-16957.8828125] * 3
+# the eta paths launch ksum, whose tensor-core products sum in another order
+# than the FP32-pipe kernel before them: their free energies are held within
+# TOL_ROUTE_FE of the sequences that kernel printed (*_FP32_KSUM) and bit for
+# bit to the sequences the tensor-core kernel printed first (*_BEFORE).
+# The grid eta path starts from momenta computed with the kernel-sum's float64
+# plain version (grid_eta_psr): v2p's float32 CG ridge solve on 10 x 65,536
+# points turns the kernel-sum's rounding into start momenta 6.3 (FP32-pipe
+# kernel) and 11.8 (tensor-core kernel) times the largest entry of that start
+# away from it, so from its own float32 start each kernel would run another
+# problem.  From the float64 start only its first free energy (one outer
+# iteration) is held across kernel-sums, against the FP32-pipe kernel's and
+# the float64 plain version's (GRID_ETA_FE_FLOAT64_KSUM): the tensor-core
+# kernel with its outputs scaled by 1 + 2^-22 moves the second and third by
+# 4.1e-3 and 1.3e-2, as far as the two kernels differ there (4.5e-3, 1.2e-2),
+# and the FP32-pipe kernel is 5.1e-3 from the float64 plain version at the
+# second (tools/ksum_ab.py eta): those entries are set by the optimizer's
+# sensitivity, not by the kernel-sum's accuracy.  The kernel-sum along the
+# trajectory is held instead at the path's end (grid_eta_end_state)
+GRID_ETA_FE_FP32_KSUM = [-1340070.25]
+GRID_ETA_FE_FLOAT64_KSUM = [-1340057.25]
+DENSE_ETA_FE_FP32_KSUM = [-16924.4140625] * 3 + [-16957.8828125] * 3
+GRID_ETA_FE_BEFORE = [-1340052.0, -1465220.125, -1536518.0]
+DENSE_ETA_FE_BEFORE = [-16927.03125] * 3 + [-16960.69140625] * 3
 # the point-sharded two-set path (parallel/): run_large's problem, at world
 # size 1 on the card; each step em_iters EM steps and one L-BFGS pass, the
 # curvature memory carried
@@ -205,6 +237,30 @@ def one_call_build_seconds(_build):
     seconds = time.perf_counter() - t0
     out.unlink()
     return seconds
+
+
+def ksum_ptxas(log):
+    """{"D=d NT=n": [registers, spill-store bytes]} of each instance of the
+    ksum kernel, from ptxas's report in the build log."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '.*ksum_kernelILi(\d)ELi(\d+)E", ln)
+        if m:
+            name = f"D={m.group(1)} NT={m.group(2)}"
+            out[name] = [None, None]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            out[name][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name][0] = int(m.group(1))
+            name = None
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -979,28 +1035,34 @@ def phase_check_eta(rs, re, ks):
         worst[name][0] = max(worst[name][0], rel)
         worst[name][1] = max(worst[name][1], ab)
 
+    def check_ksum(d, ncols, nx, ny, kw):
+        x, y, my, t = ksum_inputs(3, nx, ny, d, ncols, seed=ncols + nx, **kw)
+        got = ks.ksum(x, y, t, my, GRID_SIGMA)
+        torch.cuda.synchronize()
+        ref = ks.ksum_reference(x.double(), y.double(), t.double(), my.double(), GRID_SIGMA)
+        rel, ab = rel_err(got, ref), abs_err(got, ref)
+        ok = rel <= TOL_FWD
+        emit({"phase": "check_ksum", "frames": 3, "Nx": nx, "Ny": ny, "d": d,
+              "cols": ncols, "y_cols_per_split": ks.splitting(3, nx, ny, ncols), **kw,
+              "rel_err": rel, "tol": TOL_FWD, "ok": ok})
+        if not ok:
+            fail("check_ksum", f"ksum disagrees with its plain version at d={d} "
+                               f"cols={ncols} Nx={nx} Ny={ny} {kw}")
+        note("ksum", rel, ab)
+
     cases = [(2, c, {}) for c in (3, 6, 9, 20, 121)] + [(3, 333, {}), (2, 20, {"shared": True}),
                                                          (2, 121, {"self_case": True})]
     for d, ncols, kw in cases:
         # 3 frames of 4,001 rows against 6,007 columns, and a split y axis:
         # 3 frames of 380 rows against 40,000 columns
         for nx, ny in ((4001, 6007), (380, 40000)):
-            if kw.get("self_case"):
-                ny = nx
-            x, y, my, t = ksum_inputs(3, nx, ny, d, ncols, seed=ncols + nx, **kw)
-            got = ks.ksum(x, y, t, my, GRID_SIGMA)
-            torch.cuda.synchronize()
-            ref = ks.ksum_reference(x.double(), y.double(), t.double(), my.double(),
-                                    GRID_SIGMA)
-            rel, ab = rel_err(got, ref), abs_err(got, ref)
-            ok = rel <= TOL_FWD
-            emit({"phase": "check_ksum", "frames": 3, "Nx": nx, "Ny": ny, "d": d,
-                  "cols": ncols, "y_cols_per_split": ks.splitting(3, nx, ny, ncols), **kw,
-                  "rel_err": rel, "tol": TOL_FWD, "ok": ok})
-            if not ok:
-                fail("check_ksum", f"ksum disagrees with its plain version at d={d} "
-                                   f"cols={ncols} Nx={nx} Ny={ny} {kw}")
-            note("ksum", rel, ab)
+            check_ksum(d, ncols, nx, nx if kw.get("self_case") else ny, kw)
+    # the tensor-core kernel's tile edges: tables of 1, 8, 128 and 129 columns
+    # (n-tiles of 8, chunks of at most 128) against x sides of 15, 16 and 17
+    # rows (16 a warp), 6,007 columns (not a multiple of the 64-column tile)
+    for ncols in (1, 8, 128, 129):
+        for nx in (15, 16, 17):
+            check_ksum(2, ncols, nx, 6007, {})
     identical = True
     for n, masked in ((16381, True), (65536, False)):
         for d in (2, 3):
@@ -1044,59 +1106,123 @@ def phase_check_eta(rs, re, ks):
 
 
 def ksum_bound(pairs, d, ncols, nbytes, self_pairs=False):
-    """The bound of a kernel-sum: per pair 3d - 1 + 2 ncols FP32 operations
-    and one exponential; a self sum (x = y) takes each unordered pair once,
-    its distance and exponential shared by both rows."""
+    """The bound of a kernel-sum on its tensor-core route: the largest of its
+    exponentials over the MUFU rate, its 3 x 2 ncols TF32 FLOP a row and pair
+    (the three products float32 accuracy takes) over the TF32 peak, the
+    FP32-pipe remainder (distance, scale, split: ops/ksum.py) over the FP32
+    peak, and its bytes over the memory rate.  A self sum (x = y) takes each
+    unordered pair once: its distance, split and exponential shared by both
+    rows, its products one a row.  bound_fp32_ms: the bound of the FP32-pipe
+    route (every multiply-add there, ops_per_pair), the one PRs 3 and 4
+    printed."""
     from difficp_torch.ops import ksum as ks
 
-    if self_pairs:
-        return bound(pairs, 3 * d - 1 + 4 * ncols, pairs, nbytes)
-    return bound(pairs, ks.ops_per_pair(d, ncols), pairs, nbytes)
+    rows = 2 if self_pairs else 1
+    fp32_route = bound(pairs, ks.ops_per_pair(d, rows * ncols), pairs, nbytes)
+    terms = {"tensor": pairs * rows * ks.tensor_flops_per_pair(ncols) / PEAK_TF32_FLOPS,
+             "mufu": pairs / PEAK_EX2_PER_S,
+             "fp32_pipe": pairs * ks.fp32_ops_per_pair(d) / PEAK_FP32_FLOPS,
+             "bytes": nbytes / PEAK_BYTES_PER_S}
+    by = max(terms, key=terms.get)
+    return dict(bound_ms=terms[by] * 1e3, bound_by="bytes" if by == "bytes" else "operations",
+                bound_term=by, **{f"bound_{k}_ms": v * 1e3 for k, v in terms.items()},
+                bound_fp32_ms=fp32_route["bound_ms"])
 
 
-def phase_timing_eta(rs, re, ks, pp):
-    """Each eta kernel at the shapes the two eta paths give it: first held
-    against its plain version in float64 on the same inputs, then timed with
-    CUDA events (median of 15) beside its plain version and its bound.
-    Grid eta path: 10 frames of 65,536 points on their grid support (M), d =
-    2, sigma = 0.05, eta = 1/500.  Dense eta path: one frame of DENSE_ETA_N
-    spiral points, sigma = 0.1, eta = 1/200.  Besides, the generated self
-    forward's 20-column symmetric table at _SYM_MIN_M = 32,768 points, where
-    that route starts (no path here reaches it, PERF.md)."""
+def grid_eta_inputs():
+    """The grid eta path's geometry: 10 frames of 65,536 spiral points x,
+    their grid support qg at sigma = 0.05, a jittered per-frame support q,
+    its momenta p, and the generator that drew them."""
     import numpy as np
     import torch
     from difficp_torch.utils.point_sets import grid_support
 
-    t0 = time.perf_counter()
-    k, n, d, nd = 10, 65536, 2, DENSE_ETA_N
+    k, n, d = 10, 65536, 2
     x = torch.as_tensor(np.stack(grid_frames(k, n))).cuda()
     qg = torch.as_tensor(grid_support(x.reshape(-1, d).cpu().numpy(), GRID_SIGMA))
-    m = qg.shape[0]
     g = torch.Generator(device="cuda").manual_seed(11)
-    q = qg.cuda() + 0.1 * GRID_SIGMA * torch.randn((k, m, d), generator=g, device="cuda")
+    q = qg.cuda() + 0.1 * GRID_SIGMA * torch.randn((k, qg.shape[0], d), generator=g,
+                                                    device="cuda")
     p = 0.05 * torch.randn(q.shape, generator=g, device="cuda")
-    mq = torch.ones((k, m), device="cuda")
-    ones_x = torch.ones((k, n), device="cuda")
-    qd, pd_, md, *_ = make_inputs(nd, d, False, seed=5)
-    # the generated self forward's symmetric table where that route starts
-    qs = make_inputs(pp._SYM_MIN_M, d, False, seed=6)[0]
+    return x, qg, q, p, g
+
+
+def ring_ksum_widths(pp, eta):
+    """(label, columns) of the ring's kernel-sums at this eta, as pair_poly
+    builds their tables: the generated cross backward's row and column
+    directions, the cross Hamiltonian's value and its two gradient
+    directions (read off one small CPU evaluation of each)."""
+    import torch
+    from difficp_torch.ops import ksum as ks
+
+    widths, real = [], ks.ksum
+
+    def spy(x, y, table, my, sigma):
+        widths.append(table.shape[-2])
+        return real(x, y, table, my, sigma)
+
+    g = torch.Generator().manual_seed(0)
+    q, p, gv, gg = (torch.randn((1, 40, 2), generator=g) for _ in range(4))
+    m, gc = torch.ones((1, 40)), torch.ones((1,))
+    ks.ksum = spy
+    try:
+        pp.rhs_cross_bwd_poly(q, p, m, q, p, m, gv, gg, gc, SIGMA, eta)
+        pp.hamiltonian_cross_poly(q, p, m, q, p, m, SIGMA, eta)
+        pp.hamiltonian_cross_poly(q, p, m, q, p, m, SIGMA, eta, grad_sides=("row", "col"))
+    finally:
+        ks.ksum = real
+    labels = ("backward, row direction", "backward, column direction", "Hamiltonian value",
+              "Hamiltonian, row gradient", "Hamiltonian, column gradient")
+    return list(zip(labels, widths))
+
+
+def ksum_calls(pp, group):
+    """(name, x, y, table, sigma, self) of every kernel-sum shape a main path
+    gives ksum, with the path's geometry and a random table of the path's
+    width.  group "eta": the grid eta path (10 frames of 65,536 points on
+    their grid support, d = 2, sigma = 0.05), the dense eta path (one frame
+    of DENSE_ETA_N spiral points, sigma = 0.1) and the generated self
+    forward's 20-column symmetric table at _SYM_MIN_M = 32,768 points, where
+    that route starts (no path here reaches it, PERF.md).  group "ring": the
+    ring paths at world size 1 (the whole set as rows and as columns, a
+    cross sum over ordered pairs), RING_N points at eta = 0 and RING_ETA_N at
+    DENSE_ETA."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(13)
 
     def table(ncols, cols):
         return torch.randn((cols.shape[0], ncols, cols.shape[1]), generator=g,
                            device="cuda")
 
-    # (name, x, y, table, sigma, self) of every kernel-sum on the two paths
-    calls = [
-        ("grid ext forward", x, q, table(9, q), GRID_SIGMA, False),
-        ("grid self backward", q, q, table(121, q), GRID_SIGMA, True),
-        ("grid ext dx", x, q, table(20, q), GRID_SIGMA, False),
-        ("grid ext dq/dp", q, x, table(20, x), GRID_SIGMA, False),
-        ("dense self backward", qd, qd, table(121, qd), SIGMA, True),
-        ("dense Hamiltonian", qd, qd, table(6, qd), SIGMA, True),
-        ("dense symmetric self forward", qs, qs, table(20, qs), SIGMA, True),
-    ]
-    worst = {"ksum": [0.0, 0.0], "rhs_self_fwd_eta": [0.0, 0.0],
-             "rhs_ext_fwd_eta": [0.0, 0.0]}
+    if group == "eta":
+        x, _, q, _, _ = grid_eta_inputs()
+        qd = make_inputs(DENSE_ETA_N, 2, False, seed=5)[0]
+        qs = make_inputs(pp._SYM_MIN_M, 2, False, seed=6)[0]
+        return [
+            ("grid ext forward", x, q, table(9, q), GRID_SIGMA, False),
+            ("grid self backward", q, q, table(121, q), GRID_SIGMA, True),
+            ("grid ext dx", x, q, table(20, q), GRID_SIGMA, False),
+            ("grid ext dq/dp", q, x, table(20, x), GRID_SIGMA, False),
+            ("dense self backward", qd, qd, table(121, qd), SIGMA, True),
+            ("dense Hamiltonian", qd, qd, table(6, qd), SIGMA, True),
+            ("dense symmetric self forward", qs, qs, table(20, qs), SIGMA, True),
+        ]
+    calls = []
+    for n, eta, path in ((RING_N, 0.0, "ring"), (RING_ETA_N, DENSE_ETA, "ring eta")):
+        xr = make_inputs(n, 2, False, seed=n)[0]
+        for label, ncols in ring_ksum_widths(pp, eta):
+            calls.append((f"{path} {label}", xr, xr, table(ncols, xr), SIGMA, False))
+    return calls
+
+
+def time_ksum_calls(ks, calls, worst):
+    """Each call first held against its plain version in float64 on the same
+    inputs (TOL_FWD), then timed with CUDA events (median of 15) beside its
+    plain version (median of 3) and its bound.  Bytes: each input read once,
+    each output written once."""
+    import torch
+
     shapes = []
     for name, xs, ys, tab, sig, self_case in calls:
         got = ks.ksum(xs, ys, tab, None, sig)
@@ -1106,7 +1232,7 @@ def phase_timing_eta(rs, re, ks, pp):
         del got, ref
         torch.cuda.empty_cache()
         ok = rel <= TOL_FWD
-        nb, nx, ny, ncols = xs.shape[0], xs.shape[1], ys.shape[1], tab.shape[1]
+        nb, nx, ny, ncols, d = xs.shape[0], xs.shape[1], ys.shape[1], tab.shape[1], xs.shape[2]
         emit({"phase": "check_main_shape", "kernel": "ksum", "call": name, "frames": nb,
               "Nx": nx, "Ny": ny, "cols": ncols, "rel_err": rel, "abs_err": ab,
               "tol": TOL_FWD, "ok": ok})
@@ -1133,6 +1259,28 @@ def phase_timing_eta(rs, re, ks, pp):
         shapes.append(rec)
         emit({"phase": "timing", "kernel": "ksum", **rec})
     torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_timing_eta(rs, re, ks, pp):
+    """Each eta kernel at the shapes the two eta paths give it: first held
+    against its plain version in float64 on the same inputs, then timed with
+    CUDA events (median of 15) beside its plain version and its bound.
+    Grid eta path: 10 frames of 65,536 points on their grid support (M), d =
+    2, sigma = 0.05, eta = 1/500.  Dense eta path: one frame of DENSE_ETA_N
+    spiral points, sigma = 0.1, eta = 1/200.  ksum's shapes: ksum_calls."""
+    import torch
+
+    t0 = time.perf_counter()
+    k, n, d, nd = 10, 65536, 2, DENSE_ETA_N
+    x, qg, q, p, g = grid_eta_inputs()
+    m = qg.shape[0]
+    mq = torch.ones((k, m), device="cuda")
+    ones_x = torch.ones((k, n), device="cuda")
+    qd, pd_, md, *_ = make_inputs(nd, d, False, seed=5)
+    worst = {"ksum": [0.0, 0.0], "rhs_self_fwd_eta": [0.0, 0.0],
+             "rhs_ext_fwd_eta": [0.0, 0.0]}
+    shapes = time_ksum_calls(ks, ksum_calls(pp, "eta"), worst)
 
     out = {}
     # the ETA self forward: the grid path's support (logdet off, the ext RHS's
@@ -1221,19 +1369,102 @@ def flat_counts(counters):
     return {key: v for c in counters.values() for key, v in c.items()}
 
 
-def phase_grid_eta_path(counters):
-    """The grid main path with the gradcomponent model (version "logdet",
-    eta = 1/500): DiffPSR set-up (start momenta by v2p on the dense support,
-    then the projection onto the grid), run(2) and one stepwise Reg_opt."""
+def rel_diff_fes(fes, ref):
+    """The largest relative difference, entry by entry, of two FE sequences
+    (inf when their lengths differ or ref is missing)."""
+    if ref is None or len(fes) != len(ref):
+        return math.inf
+    return max(abs(a - b) / abs(b) for a, b in zip(fes, ref))
+
+
+def hold_eta_fes(phase, fes, refs, before):
+    """An eta path's free energies within TOL_ROUTE_FE (relative, entry by
+    entry) of each reference sequence over that sequence's length (refs: name
+    -> leading entries held), and bit for bit the tensor-core kernel-sum's
+    first sequence."""
+    rel = {name: rel_diff_fes(fes[:len(ref)], ref) for name, ref in refs.items()}
+    same = fes == before
+    emit({"phase": phase + "_fe", "FE_sequence": fes, "references": refs,
+          "rel_diff": rel, "tol": TOL_ROUTE_FE, "FE_equals_earlier_runs": same})
+    for name, ref in refs.items():
+        if rel[name] > TOL_ROUTE_FE:
+            fail(phase, f"FE sequence {fes} is not within {TOL_ROUTE_FE} of {name} {ref}")
+    if not same:
+        fail(phase, f"FE sequence {fes} is not the tensor-core kernel-sum's earlier {before}")
+
+
+def loss_grad(psr):
+    """The registration objective Reg_opt descends, at psr's momenta a0 and
+    its current targets: the loss per frame and its gradient (K, M, D)."""
     import torch
 
-    k, n, nt = 10, 65536, 10
-    reset(*counters.values())
-    t0 = time.perf_counter()
-    psr = grid_psr(k, n, version="logdet")
+    from difficp_torch.models import lddmm
+    from difficp_torch.models.psr import _frame_quad_dataloss
+
+    ext = psr.support_scheme is not None
+    dataloss = _frame_quad_dataloss(psr.y, psr._sig2_vector(), psr.xmask, psr.ptw)
+    lossfn = lddmm._make_lossfn_aux(psr.lcfg, dataloss, psr.q0, psr.x0 if ext else None,
+                                    psr.qmask, psr.xmask if ext else None)
+    p = psr.a0.detach().clone().requires_grad_(True)
+    loss, _ = lossfn(p)
+    (grad,) = torch.autograd.grad(loss.sum(), p)
+    return loss.detach(), grad
+
+
+def grid_eta_end_state(psr, ks):
+    """The kernel-sum along the grid eta path's trajectory: the objective and
+    its gradient at the path's end (its last momenta and targets) through
+    the kernel and through the kernel-sum's float64 plain version, held
+    within TOL_ROUTE_FE (the loss per frame relative to itself, the gradient
+    relative to its largest entry)."""
+    import torch
+
+    loss, grad = loss_grad(psr)
+    with float64_ksum(ks):
+        loss64, grad64 = loss_grad(psr)
     torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
-    setup_counts = flat_counts(counters)
+    rel_loss = float(((loss.double() - loss64.double()).abs() / loss64.double().abs()).max())
+    rel_grad = rel_err(grad, grad64)
+    emit({"phase": "grid_eta_end_state", "loss": loss.tolist(),
+          "loss_float64_ksum": loss64.tolist(), "loss_rel_diff": rel_loss,
+          "grad_rel_diff": rel_grad, "tol": TOL_ROUTE_FE})
+    if not (rel_loss <= TOL_ROUTE_FE and rel_grad <= TOL_ROUTE_FE):
+        fail("grid_eta_end_state", "the objective or its gradient through ksum is not "
+             f"within {TOL_ROUTE_FE} of the float64 kernel-sum's")
+
+
+@contextlib.contextmanager
+def float64_ksum(ks):
+    """ks.ksum taken by its plain version in float64 (rounded to float32 at
+    its output) inside the block; these calls launch no kernel."""
+    kernel = ks.ksum
+
+    def plain(x, y, table, my, sigma):
+        return ks.ksum_reference(x.double(), y.double(), table.double(),
+                                 None if my is None else my.double(), sigma).float()
+
+    ks.ksum = plain
+    try:
+        yield
+    finally:
+        ks.ksum = kernel
+
+
+def grid_eta_psr(ks):
+    """The grid eta path's DiffPSR: grid_psr(10, 65,536) with version
+    "logdet", its start momenta (v2p on the dense support, then the
+    projection onto the grid) computed with the kernel-sum's float64 plain
+    version, the same whichever kernel-sum runs the path after it."""
+    with float64_ksum(ks):
+        return grid_psr(10, 65536, version="logdet")
+
+
+def grid_eta_run(psr):
+    """The grid eta path after its set-up: run(2) and one stepwise Reg_opt.
+    The FE sequence (the two iterations', then the Reg_opt's), and the
+    seconds of each."""
+    import torch
+
     t1 = time.perf_counter()
     fes = psr.run(2, **GRID_RUN)
     torch.cuda.synchronize()
@@ -1241,14 +1472,30 @@ def phase_grid_eta_path(counters):
     t2 = time.perf_counter()
     psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
     torch.cuda.synchronize()
-    reg_s = time.perf_counter() - t2
-    flat = flat_counts(counters)
+    return [*map(float, fes), psr.FE], run_s, time.perf_counter() - t2
+
+
+def phase_grid_eta_path(counters, ks):
+    """The grid main path with the gradcomponent model (version "logdet",
+    eta = 1/500): DiffPSR set-up (grid_eta_psr), run(2) and one stepwise
+    Reg_opt."""
+    import torch
+
+    k, n, nt = 10, 65536, 10
+    reset(*counters.values())
+    t0 = time.perf_counter()
+    psr = grid_eta_psr(ks)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    setup_counts = flat_counts(counters)
     # run() records the start momenta's free energy first (its oracle compares
     # the first iteration with it), then the iterations'
-    fe_seq = [*map(float, fes), psr.FE]
+    fe_seq, run_s, reg_s = grid_eta_run(psr)
+    flat = flat_counts(counters)
     # loss+grad evaluations: one any-eta self forward per step of each shoot;
     # the start's shoot and the coverage pass add one shoot each without a
-    # gradient, with the generated ext forward (nt ksum) in each
+    # gradient, with the generated ext forward (nt ksum) in each; the set-up's
+    # kernel-sums are the float64 plain version's
     evals = (flat["rhs_self_fwd_eta"] - 2 * nt) / nt
     per_eval = {"rhs_self_fwd_eta": nt, "ksum": 4 * nt}
     expected_ksum = 4 * nt * evals + 2 * nt + setup_counts["ksum"]
@@ -1272,9 +1519,10 @@ def phase_grid_eta_path(counters):
         fail("grid_eta_path", "free energy did not decrease over the run")
     if tuple(psr.x1.shape) != (k, n, 2) or not bool(torch.isfinite(psr.x1).all()):
         fail("grid_eta_path", "warped points have the wrong shape or are not finite")
-    if fe_seq != GRID_ETA_FE_BEFORE:
-        fail("grid_eta_path", f"FE sequence {fe_seq} is not the ETA kernels' earlier "
-                              f"{GRID_ETA_FE_BEFORE}")
+    hold_eta_fes("grid_eta_path", fe_seq, {"fp32_ksum": GRID_ETA_FE_FP32_KSUM,
+                                           "float64_ksum": GRID_ETA_FE_FLOAT64_KSUM},
+                 GRID_ETA_FE_BEFORE)
+    grid_eta_end_state(psr, ks)
     return psr, flat
 
 
@@ -1439,9 +1687,8 @@ def phase_dense_eta_path(counters, run_large):
     x1 = psr.get_warped_data_points()
     if x1.shape != (n_points, 2) or not bool(np.isfinite(x1).all()):
         fail("dense_eta_path", "warped points have the wrong shape or are not finite")
-    if fes != DENSE_ETA_FE_BEFORE:
-        fail("dense_eta_path", f"FE sequence {fes} is not the ETA kernel's earlier "
-                               f"{DENSE_ETA_FE_BEFORE}")
+    hold_eta_fes("dense_eta_path", fes, {"fp32_ksum": DENSE_ETA_FE_FP32_KSUM},
+                 DENSE_ETA_FE_BEFORE)
     return flat
 
 
@@ -1645,12 +1892,13 @@ def phase_check_cross(rs, rc):
     return worst
 
 
-def phase_timing_cross(rc):
+def phase_timing_cross(rc, pp):
     """Each cross instance at the shape its ring path gives it (world size 1:
     the whole set as rows and columns; #10 at RING_N points, logdet on, #11
     at RING_ETA_N), first held against its float64 plain version there, then
     timed with CUDA events (median of 15) beside its plain version and its
-    bound (the function's least work per ordered pair)."""
+    bound (the function's least work per ordered pair); then ksum at every
+    kernel-sum shape of the two ring paths (ksum_calls)."""
     import torch
 
     t0 = time.perf_counter()
@@ -1691,48 +1939,12 @@ def phase_timing_cross(rc):
                          fp32_ops_per_pair=ops, gpair_per_s=pairs / (ms * 1e-3) / 1e9)
         emit({"phase": "timing", "kernel": name, **out[name]})
     torch.cuda.empty_cache()
-    # the generated cross backward's two kernel-sums at the eta = 0 ring
-    # path's shape (one frame, RING_N rows against RING_N columns; 18 and 36
-    # columns at d = 2)
+    # the ring paths' kernel-sums: the generated cross backward's two tables
+    # and the cross Hamiltonian's three, at both ring paths' shapes
     from difficp_torch.ops import ksum as ks
 
-    q, *_ = make_inputs(RING_N, 2, False, seed=RING_N)
-    x = q[0]
-    g = torch.Generator(device="cuda").manual_seed(13)
-    out["ksum"] = []
     worst["ksum"] = [0.0, 0.0]
-    for label, ncols in (("ring backward, row direction", 18),
-                         ("ring backward, column direction", 36)):
-        tab = torch.randn((ncols, RING_N), generator=g, device="cuda")
-        got = ks.ksum(x, x, tab, None, SIGMA)
-        torch.cuda.synchronize()
-        ref = ks.ksum_reference(x.double(), x.double(), tab.double(), None, SIGMA)
-        rel, ab = rel_err(got, ref), abs_err(got, ref)
-        del got, ref
-        emit({"phase": "check_main_shape", "kernel": "ksum", "call": label, "Nx": RING_N,
-              "Ny": RING_N, "cols": ncols, "rel_err": rel, "tol": TOL_FWD, "ok": rel <= TOL_FWD})
-        if rel > TOL_FWD:
-            fail("check_main_shape", f"ksum disagrees with its plain version at {label}")
-        worst["ksum"] = [max(worst["ksum"][0], rel), max(worst["ksum"][1], ab)]
-        fn = lambda: ks.ksum(x, x, tab, None, SIGMA)  # noqa: E731
-        plain = lambda: ks.ksum_reference(x, x, tab, None, SIGMA)  # noqa: E731
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        ms = cuda_ms(fn, 15)
-        plain()
-        torch.cuda.synchronize()
-        plain_ms = cuda_ms(plain, 3)
-        pairs = float(RING_N) * RING_N
-        bd = ksum_bound(pairs, 2, ncols, 4.0 * (2 * RING_N * 2 + 2 * ncols * RING_N))
-        rec = dict(call=label, frames=1, Nx=RING_N, Ny=RING_N, cols=ncols, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, **bd,
-                   share_of_bound=bd["bound_ms"] / ms,
-                   y_cols_per_split=ks.splitting(1, RING_N, RING_N, ncols),
-                   gpair_per_s=pairs / (ms * 1e-3) / 1e9)
-        out["ksum"].append(rec)
-        emit({"phase": "timing", "kernel": "ksum", **rec})
-    torch.cuda.empty_cache()
+    out["ksum"] = time_ksum_calls(ks, ksum_calls(pp, "ring"), worst)
     emit({"phase": "timing_cross_done", "seconds": time.perf_counter() - t0})
     return out, worst
 
@@ -1947,7 +2159,8 @@ def main():
     _build.library()
     regs = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln]
     emit({"phase": "build", "seconds": _build.build_seconds,
-          "one_call_seconds": one_call_build_seconds(_build), "ptxas": regs})
+          "one_call_seconds": one_call_build_seconds(_build), "ptxas": regs,
+          "ksum_ptxas": ksum_ptxas(_build.build_log)})
 
     counters = {"rhs_self": rs.launches, "rhs_ext": re.launches, "kmin2": k2.launches,
                 "ksum": ks.launches, "rhs_cross": rc.launches}
@@ -1983,7 +2196,7 @@ def main():
     timing_eta, worst_eta = phase_timing_eta(rs, re, ks, pp)
     for name, (rel, ab) in worst_eta.items():
         worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
-    psr_eta, grid_eta_launches = phase_grid_eta_path(counters)
+    psr_eta, grid_eta_launches = phase_grid_eta_path(counters, ks)
     phase_dense_eta_start(rs, pp, ks)
     t0 = time.perf_counter()
     dense_eta_launches = phase_dense_eta_path(counters, run_large)
@@ -2002,7 +2215,7 @@ def main():
 
     # the point-sharded two-set slice: the cross forward kernel and the ring
     worst.update(phase_check_cross(rs, rc))
-    timing_cross, worst_cross = phase_timing_cross(rc)
+    timing_cross, worst_cross = phase_timing_cross(rc, pp)
     for name, (rel, ab) in worst_cross.items():
         worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
     timing_eta["ksum"] += timing_cross.pop("ksum")
@@ -2017,7 +2230,8 @@ def main():
                "kmin2": "difficp_torch/csrc/kmin2.cu"}
     replaces = {
         "rhs_self_fwd": (sources["rhs_self"], f"{pr}:928", [f"{pr}:1175", f"{pr}:677"]),
-        "rhs_self_bwd": (sources["rhs_self"], f"{pr}:742", [f"{pr}:1175"]),
+        "rhs_self_bwd": (sources["rhs_self"], f"{pr}:742", [f"{pr}:1175", f"{pr}:433",
+                                                            f"{pr}:310"]),
         "rhs_ext_fwd": (sources["rhs_ext"], f"{pr}:271", [f"{pr}:1623"]),
         "rhs_ext_bwd_dx": (sources["rhs_ext"], f"{pr}:1961", [f"{pr}:1669"]),
         "rhs_ext_bwd_dqdp": (sources["rhs_ext"], f"{pr}:1961", [f"{pr}:1744"]),

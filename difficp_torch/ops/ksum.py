@@ -17,7 +17,8 @@ One function carries every standalone pairwise reduction of the gradcomponent
 - ``grad_kred`` -- sum_j (grad K)(x_i - y_j) m_j with its VJP (the JAX
   ``grad_kred_mm``).
 
-The CUDA kernel is ``csrc/ksum.cu``; its plain PyTorch version
+The CUDA kernel is ``csrc/ksum.cu`` (the exponential tile contracted with the
+table on the tensor cores, wgmma in 3xTF32); its plain PyTorch version
 (``ksum_reference``) is chunked over rows so memory stays O(chunk Ny).  A
 tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
 or the call raises.  ``launches`` counts kernel launches.
@@ -36,14 +37,15 @@ from difficp_torch.ops.rhs_self import _check, _chunk_rows, _frames, _raise_on
 # kernel launches since the last reset (reset by assigning 0)
 launches = {"ksum": 0}
 
-# columns a thread accumulates at most (a multiple of 4); wider tables are cut
-# into chunks over a grid axis
-MAX_CHUNK_COLS = 32
-# rows a block covers (128 threads of 2 rows each, csrc/ksum.cu)
-BLOCK_ROWS = 256
-# a launch with fewer blocks than this splits the y axis too, into splits of
-# at least MIN_SPLIT_COLS columns, aiming at TARGET_BLOCKS blocks (4 per SM
-# of an H100's 132)
+# payload columns a chunk holds at most (16 n-tiles of the 8-column mma);
+# wider tables are cut into chunks over a grid axis
+MAX_CHUNK_COLS = 128
+# columns of y a staged tile holds (csrc/ksum.cu kTileJ): the y axis is
+# padded to it and cut into splits of a multiple of it
+TILE_COLS = 64
+# a launch with fewer than TARGET_BLOCKS / 2 blocks splits the y axis too,
+# into splits of at least MIN_SPLIT_COLS columns, aiming at TARGET_BLOCKS
+# blocks (4 waves of an H100's 132 SMs: the kernel runs one block an SM)
 TARGET_BLOCKS = 528
 MIN_SPLIT_COLS = 1024
 
@@ -51,7 +53,8 @@ _bound = False
 
 
 def ops_per_pair(d: int, ncols: int) -> int:
-    """The least FP32 work of the function per (x_i, y_j) pair, for its bound:
+    """The least FP32 work of the function per (x_i, y_j) pair when every
+    multiply-add runs on the FP32 pipe, for the FP32 bound (``bound_fp32``):
     an FMA counts as two; the mask and the exponent's scale are per-point
     factors (folded into the table and the coordinates), O(N) and not counted:
 
@@ -65,22 +68,56 @@ def ops_per_pair(d: int, ncols: int) -> int:
     return 3 * d - 1 + 2 * ncols
 
 
+def tensor_flops_per_pair(ncols: int) -> int:
+    """Tensor-core work per pair of the kernel's route: A[i, c] += k T[j, c]
+    as three TF32 products (k_lo T_hi, k_hi T_lo, k_hi T_hi), two FLOP each,
+    which float32 accuracy takes."""
+    return 3 * 2 * ncols
+
+
+def fp32_ops_per_pair(d: int) -> int:
+    """FP32-pipe work per pair beside the tensor-core products:
+
+        delta = x_i - y_j                           d
+        r2 = |delta|^2                              2d - 1
+        exponent's scale  -u r2 / 2                 1
+        k_hi = rna(k)                               1
+        k_lo = k - k_hi                             1
+
+    and one exponential, on the MUFU.  The table's split is O(C Ny), once a
+    call, and not counted.
+    """
+    return 3 * d - 1 + 1 + 1 + 1
+
+
 def chunking(ncols: int) -> tuple[int, int]:
     """(columns per chunk, chunks) of a table of ncols columns: the fewest
-    chunks of at most MAX_CHUNK_COLS columns, each a multiple of 4."""
+    chunks of at most MAX_CHUNK_COLS columns, each a multiple of 8 (the step
+    of the wgmma's N), so that each pair takes ceil(ncols / 128)
+    exponentials."""
     n = -(-ncols // MAX_CHUNK_COLS)
     per = -(-ncols // n)
-    return 4 * -(-per // 4), n
+    return 8 * -(-per // 8), n
+
+
+def block_rows(ncols: int) -> int:
+    """Rows a block covers: 4 warpgroups of 64 rows for chunks of up to 64
+    columns, 2 above, where the accumulators take twice the registers
+    (csrc/ksum.cu Shape)."""
+    return 256 if chunking(ncols)[0] <= 64 else 128
 
 
 def splitting(frames: int, nx: int, ny: int, ncols: int) -> int:
-    """Columns per split of the y axis (ny when it is not split)."""
+    """Columns per split of the y axis, a multiple of TILE_COLS (ny rounded up
+    to it when the axis is not split)."""
     _, n_chunks = chunking(ncols)
-    blocks = frames * -(-nx // BLOCK_ROWS) * n_chunks
+    blocks = frames * -(-nx // block_rows(ncols)) * n_chunks
     s = 1
     if 2 * blocks < TARGET_BLOCKS:
         s = max(1, min(-(-TARGET_BLOCKS // blocks), ny // MIN_SPLIT_COLS))
-    return 128 * -(-(-(-ny // s)) // 128) if s > 1 else ny
+    cols = -(-ny // s)
+    step = 128 if s > 1 else TILE_COLS
+    return step * -(-cols // step)
 
 
 @contextlib.contextmanager
@@ -123,7 +160,7 @@ def _lib():
     lib = _build.library()
     if not _bound:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.difficp_ksum.argtypes = [vp] * 5 + [ci] * 8 + [cf, vp]
+        lib.difficp_ksum.argtypes = [vp] * 7 + [ci] * 8 + [cf, vp]
         lib.difficp_ksum.restype = ci
         _bound = True
     return lib
@@ -148,15 +185,24 @@ def ksum(x, y, table, my, sigma):
     _check("table", table, (*ylead, ncols, ny), x.device)
     if my is not None:
         _check("my", my, (*ylead, ny), x.device)
-    cc, _ = chunking(ncols)
+    cw, n_chunks = chunking(ncols)
     cols = splitting(nb, nx, ny, ncols)
     n_splits = -(-ny // cols)
+    nyp = TILE_COLS * -(-ny // TILE_COLS)
+    fy = 1 if shared else nb
+    # scratch in one allocation: the y records (fy, nyp) float4, then the
+    # split table in the wgmma B layout, (fy, n_chunks, nyp / 8) k-steps of
+    # 4 cw 16-byte words
+    rec_words = fy * nyp * 4
+    scratch = torch.empty(rec_words + fy * n_chunks * (nyp // 8) * cw * 16,
+                          dtype=torch.int32, device=x.device)
     out = torch.empty((nb, n_splits, ncols, nx), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().difficp_ksum(
         x.data_ptr(), y.data_ptr(), None if my is None else my.data_ptr(),
-        table.data_ptr(), out.data_ptr(), nb, nx, ny, d, ncols, cc, cols,
-        int(shared), 1.0 / (sigma * sigma), stream)
+        table.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 4 * rec_words,
+        out.data_ptr(), nb, nx, ny, d, ncols, cw // 8, cols, int(shared),
+        1.0 / (sigma * sigma), stream)
     _raise_on(err, "ksum")
     launches["ksum"] += 1
     out = out[:, 0] if n_splits == 1 else out.sum(1)

@@ -381,6 +381,49 @@ def test_ksum_split_and_shared_y(cuda, shared):
     _close(got, ref, TOL_FWD)
 
 
+@pytest.mark.parametrize("ncols", [1, 8, 9, 36, 128, 129, 333])
+@pytest.mark.parametrize("nx", [15, 16, 17, 1001])
+def test_ksum_tile_edges(cuda, nx, ncols):
+    """The tensor-core kernel at the edges of its tiles: tables of 1, 8, 9,
+    36, 128, 129 and 333 columns (steps of 8, chunks of at most 128) and
+    x sides of 15, 16, 17 (a warp's 16 rows) and 1,001 rows, against a y
+    side of 1,003 masked columns (not a multiple of the 64-column tile); d =
+    3 from 129 columns on.  Float64 plain version, TOL_FWD."""
+    from difficp_torch.ops import ksum as KS
+
+    d = 3 if ncols > 128 else 2
+    x, y, my, t = _ksum_inputs(2, nx, 1003, d, ncols, seed=nx + ncols, device=cuda)
+    got = KS.ksum(x, y, t, my, SIG)
+    torch.cuda.synchronize()
+    ref = KS.ksum_reference(x.double(), y.double(), t.double(), my.double(), SIG)
+    assert got.shape == (2, ncols, nx)
+    _close(got, ref, TOL_FWD)
+
+
+@pytest.mark.parametrize("case", ["shared", "self", "split"])
+def test_ksum_cases_bit_for_bit(cuda, case):
+    """A y shared by every frame, the self case (x = y, with holes in the
+    mask) and a split y axis, each against the float64 plain version within
+    TOL_FWD; and two calls give the same bits (no atomics, the splits
+    summed in a fixed order)."""
+    from difficp_torch.ops import ksum as KS
+
+    if case == "shared":
+        x, y, my, t = _ksum_inputs(3, 777, 2049, 2, 36, seed=7, device=cuda, shared=True)
+    elif case == "self":
+        x, _, my, t = _ksum_inputs(2, 1500, 1500, 3, 121, seed=8, device=cuda)
+        y = x
+    else:
+        x, y, my, t = _ksum_inputs(10, 380, 40001, 2, 18, seed=9, device=cuda)
+        assert -(-40001 // KS.splitting(10, 380, 40001, 18)) > 1
+    got = KS.ksum(x, y, t, my, SIG)
+    again = KS.ksum(x, y, t, my, SIG)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = KS.ksum_reference(x.double(), y.double(), t.double(), my.double(), SIG)
+    _close(got, ref, TOL_FWD)
+
+
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("withlogdet", [True, False])
 def test_eta_forward_kernels_match_plain(cuda, d, withlogdet):

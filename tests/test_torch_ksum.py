@@ -3,7 +3,8 @@ JAX package's pallas_ksum, run as tests/test_ksum.py runs it (Pallas in
 interpret mode on the CPU): pairwise_ksum with masks, several frames and a
 shared y; pairwise_ksum_sym; grad_kred_mm and the eta != 0 Hamiltonian,
 values and gradients; mm_center.  Also the kernel's column chunks and y-axis
-splits, and the term list of its bound.
+splits, the term lists of its bounds, and its 3xTF32 arithmetic emulated on
+the CPU against float64.
 
 On the CPU the ops take the kernel's plain PyTorch version; the CUDA kernel
 itself is checked against that on the card (tests/test_torch_cuda.py and
@@ -148,34 +149,179 @@ def test_hamiltonian_eta_matches_jax(d):
         _close(gp[k].numpy(), wp, 1e-3)
 
 
-@pytest.mark.parametrize("ncols,cc,n", [(3, 4, 1), (6, 8, 1), (9, 12, 1), (20, 20, 1),
-                                        (40, 20, 2), (121, 32, 4), (333, 32, 11)])
+@pytest.mark.parametrize("ncols,cc,n", [(3, 8, 1), (6, 8, 1), (9, 16, 1), (20, 24, 1),
+                                        (40, 40, 1), (121, 128, 1), (333, 112, 3),
+                                        (1, 8, 1), (8, 8, 1), (18, 24, 1), (36, 40, 1),
+                                        (128, 128, 1), (129, 72, 2)])
 def test_kernel_column_chunks(ncols, cc, n):
-    """The kernel's column chunks: the fewest of at most 32 columns, each a
-    multiple of 4, covering the table (the widths the eta model sends)."""
+    """The kernel's column chunks: the fewest of at most 128 columns (N of
+    the wgmma up to 128, in steps of 8), each a multiple of 8, covering the table
+    (the widths the eta model and the ring send, and the tile edges), so
+    that a pair takes ceil(ncols / 128) exponentials."""
     assert KS.chunking(ncols) == (cc, n)
-    assert cc * n >= ncols and cc % 4 == 0 and cc <= KS.MAX_CHUNK_COLS
+    assert cc * n >= ncols and cc % 8 == 0 and cc <= KS.MAX_CHUNK_COLS
+    assert n == -(-ncols // KS.MAX_CHUNK_COLS)
 
 
 def test_kernel_y_splits():
-    """The y axis is split only where the launch would leave the card idle:
-    the support-side dq/dp sum (10 frames of 380 rows against 65,536
-    columns) splits, the data-side sums and the dense self sums do not."""
-    assert KS.splitting(10, 65536, 380, 20) == 380
-    assert KS.splitting(1, 32768, 32768, 121) == 32768
+    """The y axis is split only where the launch would leave the card idle
+    (fewer than two blocks an SM; the kernel runs one block an SM): the
+    support-side dq/dp sum (10 frames of 380 rows against 65,536 columns)
+    splits, the data-side sums and the dense self sums at run_large's
+    131,072 points do not.  Splits are whole 64-column tiles (an unsplit
+    axis is padded to one)."""
+    assert KS.block_rows(20) == 256 and KS.block_rows(121) == 128
+    assert KS.splitting(10, 65536, 380, 20) == 384
+    assert KS.splitting(1, 131072, 131072, 121) == 131072
     cols = KS.splitting(10, 380, 65536, 20)
     assert cols % 128 == 0 and cols >= KS.MIN_SPLIT_COLS
     splits = -(-65536 // cols)
-    assert 10 * 2 * splits >= KS.TARGET_BLOCKS // 2
+    assert 10 * -(-380 // KS.block_rows(20)) * splits >= KS.TARGET_BLOCKS
     # too few columns to split
-    assert KS.splitting(1, 100, 1500, 3) == 1500
+    assert KS.splitting(1, 100, 1500, 3) == 1536
+    for args in ((10, 65536, 380, 20), (1, 100, 1500, 3), (3, 300, 20000, 20)):
+        assert KS.splitting(*args) % KS.TILE_COLS == 0
 
 
 def test_ops_per_pair_counts_the_function():
-    """The term list of the bound: 3d - 1 for the distance, one multiply-add
-    per column."""
+    """The term lists of the bounds.  FP32 route: 3d - 1 for the distance,
+    one multiply-add per column.  Tensor-core route: three TF32 products of
+    two FLOP per column; beside them on the FP32 pipe the distance, the
+    exponent's scale and the split of k (one rounding, one subtraction)."""
     assert KS.ops_per_pair(2, 20) == 45
     assert KS.ops_per_pair(3, 121) == 250
+    assert KS.tensor_flops_per_pair(36) == 216
+    assert KS.tensor_flops_per_pair(18) == 108
+    assert KS.fp32_ops_per_pair(2) == 8
+    assert KS.fp32_ops_per_pair(3) == 11
+    # the ring's bound at 65,536^2 (one exponential a pair, 4.1875e12 a
+    # second on the MUFU; 495 TFLOP/s TF32): tensor-bound at 36 columns,
+    # MUFU-bound at 18
+    pairs = 65536.0 ** 2
+    for ncols, want_ms, by in ((36, 1.874, "tensor"), (18, 1.026, "mufu")):
+        terms = {"tensor": pairs * KS.tensor_flops_per_pair(ncols) / 495e12,
+                 "mufu": pairs / 4.1875e12,
+                 "fp32": pairs * KS.fp32_ops_per_pair(2) / 67e12}
+        assert max(terms, key=terms.get) == by
+        assert abs(1e3 * terms[by] - want_ms) < 1e-3
+
+
+def _tf32_rna(v):
+    """Round float32 to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on the float32 bits through an int32 view: cvt.rna.tf32.f32."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rz(v):
+    """The TF32 value the tensor cores read from a float32 register: its top
+    19 bits (truncation)."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _rz_float32(v):
+    """float64 to float32, rounded toward zero."""
+    f = v.float()
+    return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _ksum_3xtf32(x, y, table, my, sigma, passes=3, tile=KS.TILE_COLS):
+    """The kernel's arithmetic on the CPU: k = exp2(-u log2(e) r2 / 2) in
+    float32; P = m T; P = P_hi + P_lo with P_hi = rna(P), P_lo = rna(P -
+    P_hi) (the prep kernel); k_hi = rna(k) and k_lo = k - k_hi, which the
+    tensor cores read truncated to TF32.  Per 64-column tile of y, k-step by
+    k-step (8 columns), the kernel's three products in its order, k_lo P_hi,
+    k_hi P_lo, k_hi P_hi: each adds the exact sum of its 8 products (TF32 by
+    TF32 is exact) to the tile's accumulators and truncates the result to
+    float32 (toward zero), as the tensor cores accumulate; how they align the
+    addends within one k-step is not modelled.  Each tile's sums are then
+    added to the running totals in float32, rounded to nearest.  passes=1
+    keeps k_hi P_hi alone: one TF32 product."""
+    c2 = np.float32(-0.5 / sigma ** 2 * 1.4426950408889634)
+    d = x[..., :, None, :] - y[..., None, :, :]
+    k = torch.exp2(c2 * (d * d).sum(-1))  # (..., Nx, Ny)
+    p = (table * my[..., None, :]).transpose(-1, -2)  # (..., Ny, C)
+    k_hi, p_hi = _tf32_rna(k), _tf32_rna(p)
+    k_lo, p_lo = _tf32_rz(k - k_hi), _tf32_rna(p - p_hi)
+    products = [(k_lo, p_hi), (k_hi, p_lo), (k_hi, p_hi)][3 - passes:]
+    products = [(a.double(), b.double()) for a, b in products]
+    acc = torch.zeros((*x.shape[:-1], table.shape[-2]), dtype=torch.float32)
+    for j in range(0, y.shape[-2], tile):
+        part = torch.zeros_like(acc)
+        for s in range(j, min(j + tile, y.shape[-2]), 8):
+            sl = slice(s, s + 8)
+            for a, b in products:
+                part = _rz_float32(part.double() + a[..., sl] @ b[..., sl, :])
+        acc = acc + part
+    return acc.transpose(-1, -2)
+
+
+def _scheme_inputs(ncols):
+    """3 frames of 400 rows against 600 columns on clouds about 1 wide, sigma
+    = 0.05 (the grid eta path's), a ragged mask and a random table."""
+    rng = np.random.default_rng(ncols)
+    x = rng.uniform(-0.5, 0.5, size=(3, 400, 2)).astype(np.float32)
+    y = rng.uniform(-0.5, 0.5, size=(3, 600, 2)).astype(np.float32)
+    my = (rng.uniform(size=(3, 600)) > 0.1).astype(np.float32)
+    t = rng.normal(size=(3, ncols, 600)).astype(np.float32)
+    return _t(x, y, t, my)
+
+
+TOL_FWD = 1e-5  # chip_smoke.py's bound on ksum against its float64 plain version
+
+
+@pytest.mark.parametrize("ncols", [6, 20, 36, 121])
+def test_3xtf32_scheme_meets_the_forward_tolerance(ncols):
+    """The kernel's 3xTF32 arithmetic, emulated, stays within TOL_FWD of the
+    float64 plain version (relative to the largest output), and a single
+    TF32 product does not: the negative control that makes the three
+    passes necessary."""
+    x, y, t, my = _scheme_inputs(ncols)
+    sig = 0.05
+    ref = KS.ksum_reference(x.double(), y.double(), t.double(), my.double(), sig)
+    scale = float(ref.abs().max())
+    err3 = float((_ksum_3xtf32(x, y, t, my, sig).double() - ref).abs().max()) / scale
+    err1 = float((_ksum_3xtf32(x, y, t, my, sig, passes=1).double() - ref).abs().max()) / scale
+    assert err3 <= TOL_FWD, err3
+    assert err1 > TOL_FWD, err1
+
+
+@pytest.mark.parametrize("sigma", [0.05, 0.2])
+def test_tiles_keep_truncated_accumulation_within_tolerance(sigma):
+    """The emulated 3xTF32 sums over one 16,384-column row with a positive
+    table: summed in tiles of TILE_COLS columns they stay within TOL_FWD of
+    the float64 plain version; accumulated over the whole row, the
+    truncation after each k-step misses it."""
+    rng = np.random.default_rng(7)
+    ny = 16384
+    x = rng.uniform(-0.5, 0.5, size=(1, 64, 2)).astype(np.float32)
+    y = rng.uniform(-0.5, 0.5, size=(1, ny, 2)).astype(np.float32)
+    t = np.abs(rng.normal(size=(1, 6, ny))).astype(np.float32)
+    x, y, t, my = _t(x, y, t, np.ones((1, ny), np.float32))
+    ref = KS.ksum_reference(x.double(), y.double(), t.double(), my.double(), sigma)
+    scale = float(ref.abs().max())
+
+    def err(tile):
+        return float((_ksum_3xtf32(x, y, t, my, sigma, tile=tile).double() - ref).abs().max()) / scale
+
+    assert err(KS.TILE_COLS) <= TOL_FWD
+    assert err(ny) > TOL_FWD
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """_tf32_rna on hand-made bit patterns: below half a TF32 ulp rounds
+    down, at half rounds away from zero (either sign), a carry reaches the
+    exponent; and hi + lo recovers v to 2^-22 of it."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    v = torch.tensor([one + 0.49 * ulp, one + 0.5 * ulp, -(one + 0.5 * ulp),
+                      2.0 - 0.5 * ulp, 3.0], dtype=torch.float32)
+    got = _tf32_rna(v).tolist()
+    assert got == [one, one + ulp, -(one + ulp), 2.0, 3.0]
+    w = torch.as_tensor(np.random.default_rng(0).normal(size=1000).astype(np.float32))
+    hi = _tf32_rna(w)
+    lo = _tf32_rna(w - hi)
+    assert float(((hi.double() + lo.double()) - w.double()).abs().div(w.abs()).max()) <= 2.0 ** -21
 
 
 def test_monomials_builder():

@@ -107,6 +107,38 @@ def test_function_matches_pallas_interpret(withlogdet):
 
 
 @pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("withlogdet", [True, False])
+def test_backward_matches_pallas_streaming_bwd(d, withlogdet):
+    """The port's self backward against the streaming Pallas VJP
+    _rhs_self_bwd_pallas (TPU row #12, interpret mode on the CPU), which has
+    rhs_self_bwd's contract: (dq, dp) from the cotangents of (v, -Gq, dc).
+    Both rhs_self_bwd itself and RHSSelf's backward (the kernel route's
+    Function) are held; M = 300 with holes and a padded tail, gc != 0 with
+    logdet on, and gc = 0 with it off (dc is then no output).  dq rtol 1e-4,
+    dp 1e-5, as against the Pallas interpret backward above."""
+    from difficp_tpu.ops.pallas_reductions import _rhs_self_bwd_pallas
+
+    q, p, mask, a, b, c = _inputs(300, d, seed=40 + d)
+    gc = c if withlogdet else np.float32(0.0)
+    dq_ref, dp_ref = _rhs_self_bwd_pallas(
+        jnp.asarray(q), jnp.asarray(p), jnp.asarray(mask), jnp.asarray(a),
+        jnp.asarray(b), jnp.asarray(gc), SIG)
+
+    qt, pt, mt, at, bt = _t(q, p, mask, a, b)
+    dq, dp = RS.rhs_self_bwd(qt, pt, mt, at, bt, torch.tensor(c), SIG, withlogdet)
+    _close(dq, dq_ref, 1e-4)
+    _close(dp, dp_ref, 1e-5)
+
+    qt.requires_grad_(True)
+    pt.requires_grad_(True)
+    v, w, dcost = RS.RHSSelf.apply(qt, pt, mt, SIG, withlogdet)
+    fdq, fdp = torch.autograd.grad(
+        (v * at).sum() + (w * bt).sum() + float(c) * dcost, (qt, pt))
+    _close(fdq, dq_ref, 1e-4)
+    _close(fdp, dp_ref, 1e-5)
+
+
+@pytest.mark.parametrize("d", [2, 3])
 def test_masked_equals_subset(d):
     q, p, mask, a, b, c = _inputs(120, d, seed=5)
     idx = np.nonzero(mask)[0]
