@@ -74,9 +74,10 @@ def v(cfg: LDDMMConfig, x, q, p, qmask=None):
     return red.v_field(x, q, p, cfg.sigma, cfg.eta, qmask)
 
 
-def hamiltonian(cfg: LDDMMConfig, q, p, qmask=None):
-    """H(q, p) (LDDMM.py:142-159)."""
-    return red.hamiltonian(q, p, cfg.sigma, cfg.eta, qmask)
+def hamiltonian(cfg: LDDMMConfig, q, p, qmask=None, order=None):
+    """H(q, p) (LDDMM.py:142-159); ``order`` the rows' order at q for the
+    kernels (``backend.row_order``), computed by them when None."""
+    return red.hamiltonian(q, p, cfg.sigma, cfg.eta, qmask, order)
 
 
 class ShootState(NamedTuple):
@@ -86,38 +87,43 @@ class ShootState(NamedTuple):
     x: Optional[torch.Tensor] = None  # advected external points, or None
 
 
-def _ode(cfg: LDDMMConfig, qmask, xmask):
-    """Hamiltonian ODE right-hand side (LDDMM.py:176-227), fused."""
+def _ode(cfg: LDDMMConfig, qmask, xmask, order):
+    """Hamiltonian ODE right-hand side (LDDMM.py:176-227), fused; every step
+    keeps the rows' order of q0."""
     def fn(s: ShootState) -> ShootState:
         if s.x is None:
             vq, mgq, dcost = red.lddmm_rhs_self(
-                s.q, s.p, cfg.sigma, cfg.eta, cfg.withlogdet, qmask)
+                s.q, s.p, cfg.sigma, cfg.eta, cfg.withlogdet, qmask, order)
             return ShootState(q=vq, p=mgq, cost=dcost, x=None)
         vq, mgq, dcost, vx = red.lddmm_rhs_ext(
-            s.q, s.p, s.x, cfg.sigma, cfg.eta, cfg.withlogdet, qmask, xmask)
+            s.q, s.p, s.x, cfg.sigma, cfg.eta, cfg.withlogdet, qmask, xmask, order)
         return ShootState(q=vq, p=mgq, cost=dcost, x=vx)
 
     return fn
 
 
 def shoot(cfg: LDDMMConfig, q0, p0, x0=None, qmask=None, xmask=None,
-          save_traj: bool = False):
+          save_traj: bool = False, order=None):
     """Simulate the geodesic ODE from (q0, p0), optionally advecting an
-    external point set x0 (LDDMM.py:286-299).
+    external point set x0 (LDDMM.py:286-299).  ``order``: the rows' order of
+    the eta = 0 self kernels at q0 (``backend.row_order``), computed here when
+    None; one for every step, since the support moves little from q0.
 
     :return: (final ShootState, trajectory ShootState with nt+1 leading dim
         or None)
     """
+    if order is None:
+        order = red.row_order(q0, cfg.sigma, qmask, cfg.eta, x0)
     state0 = ShootState(
         q=q0, p=p0, cost=torch.zeros(q0.shape[:-2], dtype=q0.dtype,
                                      device=q0.device), x=x0)
-    return integrate(_ode(cfg, qmask, xmask), state0, nt=cfg.nt, scheme=cfg.scheme,
-                     save_traj=save_traj)
+    return integrate(_ode(cfg, qmask, xmask, order), state0, nt=cfg.nt,
+                     scheme=cfg.scheme, save_traj=save_traj)
 
 
-def trajloss(cfg: LDDMMConfig, q0, p0, final_cost, qmask=None):
+def trajloss(cfg: LDDMMConfig, q0, p0, final_cost, qmask=None, order=None):
     """LDDMM trajectory energy lambda * H(q0, p0) + divcost (LDDMM.py:318-334)."""
-    return cfg.lambd * hamiltonian(cfg, q0, p0, qmask) + final_cost
+    return cfg.lambd * hamiltonian(cfg, q0, p0, qmask, order) + final_cost
 
 
 class OptimizeResult(NamedTuple):
@@ -138,10 +144,13 @@ class OptimizeResult(NamedTuple):
 
 def _make_lossfn_aux(cfg, dataloss, q0, x0, qmask, xmask):
     """p -> (trajloss + dataloss(arrival points), (final, trajl, datal)); the
-    arrival points are the warped data x1 when x0 is given, else q1."""
+    arrival points are the warped data x1 when x0 is given, else q1.  q0 is
+    fixed, so the rows' order is computed once here for every evaluation."""
+    order = red.row_order(q0, cfg.sigma, qmask, cfg.eta, x0)
+
     def lossfn(p):
-        final, _ = shoot(cfg, q0, p, x0, qmask, xmask)
-        trajl = trajloss(cfg, q0, p, final.cost, qmask)
+        final, _ = shoot(cfg, q0, p, x0, qmask, xmask, order=order)
+        trajl = trajloss(cfg, q0, p, final.cost, qmask, order)
         datal = dataloss(final.q if x0 is None else final.x)
         return trajl + datal, (final, trajl, datal)
 

@@ -57,29 +57,42 @@ def _use_dense(m, n):
     return m * n <= DENSE_PAIR_LIMIT
 
 
-def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None):
+def row_order(q, sigma, mask_q=None, eta=0.0, x=None):
+    """The rows' order of the eta = 0 self kernels at q (``rhs_self.row_order``)
+    for the RHS at q (with external points x when given), or None where that
+    RHS takes none: on the dense route, or at eta != 0.  Callers compute it
+    once for every RHS, Hamiltonian and kernel-sum at the same q0 and pass it
+    on (``order=``)."""
+    m = q.shape[-2]
+    if eta != 0.0 or _use_dense(m, m if x is None else m + x.shape[-2]):
+        return None
+    return _kernel.row_order(q, _kernel._ones_mask(q) if mask_q is None else mask_q,
+                             float(sigma))
+
+
+def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None, order=None):
     """(vq, -Gq, dcost) of the self RHS, dense or kernel route."""
     m = q.shape[-2]
     if _use_dense(m, m):
         return _dense.lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q)
-    return _kernel.lddmm_rhs_self(q, p, sigma, withlogdet, mask_q, eta)
+    return _kernel.lddmm_rhs_self(q, p, sigma, withlogdet, mask_q, eta, order)
 
 
-def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None):
+def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None, order=None):
     """(vq, -Gq, dcost, vx) of the RHS with external points x, dense or kernel
     route, on m (m + n_x) pairs per frame (JAX backend.py:122-130)."""
     m = q.shape[-2]
     if _use_dense(m, m + x.shape[-2]):
         return _dense.lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q, mask_x)
-    return _ext.lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q, mask_x, eta)
+    return _ext.lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q, mask_x, eta, order)
 
 
-def hamiltonian(q, p, sigma, eta, mask_q=None):
+def hamiltonian(q, p, sigma, eta, mask_q=None, order=None):
     """H(q, p) (LDDMM.py:142-159), dense or kernel route."""
     m = q.shape[-2]
     if _use_dense(m, m):
         return _dense.hamiltonian(q, p, sigma, eta, mask_q)
-    return _kernel.hamiltonian(q, p, sigma, mask_q, eta)
+    return _kernel.hamiltonian(q, p, sigma, mask_q, eta, order)
 
 
 def v_field(x, q, p, sigma, eta, mask_q=None):
@@ -99,11 +112,12 @@ def grad_kred(x, y, sigma, mask_y=None):
     return _ksum.grad_kred(x, y, sigma, mask_y)
 
 
-def kred(x, y, b, sigma, mask_y=None):
+def kred(x, y, b, sigma, mask_y=None, order=None):
     """Kernel-sum convolution sum_j K(x_i - y_j) m_j b_j.  Above the limit
     only the self sum kred(q, q, b) exists, as the self forward kernel's v
-    output, which also zeroes rows with m_i = 0 (its one caller,
-    ``solvers.kridge_solve_cg``, overwrites those rows)."""
+    output (rows in ``order``, from ``row_order(x, sigma, mask_y)``), which also
+    zeroes rows with m_i = 0 (its one caller, ``solvers.kridge_solve_cg``,
+    overwrites those rows)."""
     if _use_dense(x.shape[-2], y.shape[-2]):
         return _dense.kred(x, y, b, sigma, mask_y)
     if x is not y:
@@ -112,7 +126,7 @@ def kred(x, y, b, sigma, mask_y=None):
             "ported yet: the kernel op layer has no kred_mm (no path runs it)")
     m = _kernel._ones_mask(x) if mask_y is None else mask_y.contiguous()
     v, _, _ = _kernel.rhs_self_fwd(x.contiguous(), b.contiguous(), m, float(sigma),
-                                   False)
+                                   False, order=order)
     return v
 
 

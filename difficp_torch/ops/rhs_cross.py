@@ -9,15 +9,16 @@ give the terms of ``csrc/rhs_self.cu``'s header, one output per row: v, w
 columns enter through mc inside k.  Summed over a partition of the columns
 they give the self RHS.
 
-One kernel computes it on the card: the forward kernel of ``csrc/rhs_self.cu``
-with its column set apart from its rows (``rhs_cross_fwd``; eta a template
-switch).  It replaces the TPU kernels ``_rhs_self_mm_kernel`` via
-``_rhs_cross_fwd_mm`` (eta = 0) and ``_rhs_self_kernel`` via
-``_rhs_cross_fwd_stream`` (any eta).  It sums pairs directly and uses
-differences only, so the forward takes no ``_mm_center``.  Its plain PyTorch
-version is ``rhs_cross_fwd_reference``, chunked over rows.  A tensor on the
-CPU takes the plain version; a CUDA tensor launches the kernel or the call
-raises.  ``launches`` counts kernel launches.
+The forward kernels of ``csrc/rhs_self.cu`` compute it on the card with their
+column set apart from their rows (``rhs_cross_fwd``): at eta = 0 the table
+kernel on the tensor cores, with the rows in Morton order
+(``rhs_self.row_order``) and each block's table centred on its rows, the
+columns in their own order; at eta != 0 the direct ETA instance.  They
+replace the TPU kernels ``_rhs_self_mm_kernel`` via ``_rhs_cross_fwd_mm``
+(eta = 0) and ``_rhs_self_kernel`` via ``_rhs_cross_fwd_stream`` (any eta).
+Its plain PyTorch version is ``rhs_cross_fwd_reference``, chunked over rows.
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel or the call raises.  ``launches`` counts kernel launches.
 
 Three autograd Functions carry the ring's rotation bodies, the counterparts of
 the custom VJPs ``make_rhs_cross``, ``make_rhs_xcross`` and
@@ -44,7 +45,8 @@ import ctypes
 import torch
 
 from difficp_torch.ops import _build, ksum, pair_poly, rhs_ext
-from difficp_torch.ops.rhs_self import _check, _frames, _raise_on, fwd_reference
+from difficp_torch.ops.rhs_self import (_check, _frames, _order_for, _raise_on, block_rows,
+                                        fwd_reference)
 
 # kernel launches since the last reset (reset by assigning 0); the any-eta
 # instance counts apart
@@ -68,8 +70,8 @@ def cross_fwd_ops_per_pair(d: int) -> int:
         w_i += (k pp) d                             2d + 1
         km = k mc_j;  e_i += km d                   2d + 1
 
-    and one exponential, on the MUFU.  The kernel takes 11 d + 5 operations a
-    pair (it forms pr_i.d per pair and masks k itself).
+    and one exponential, on the MUFU.  The eta = 0 kernel's route is that of
+    the self forward (``rhs_self.tensor_flops_per_pair``).
     """
     return 11 * d
 
@@ -103,26 +105,28 @@ def _lib():
     lib = _build.library()
     if not _bound:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.difficp_rhs_cross_fwd.argtypes = [vp] * 9 + [ci] * 4 + [cf, ci, cf, ci, vp]
+        lib.difficp_rhs_cross_fwd.argtypes = [vp] * 7 + [ci, ci] + [vp] * 3 + [ci] * 4 + [
+            cf, ci, cf, ci, vp]
         lib.difficp_rhs_cross_fwd.restype = ci
         _bound = True
     return lib
 
 
-def rhs_cross_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta=0.0):
+def rhs_cross_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta=0.0, order=None):
     """(v, w, per-row dcost partials) of the rows against the columns, with
     the gradcomponent terms when eta != 0.  CPU tensors take the plain
-    version; CUDA tensors launch the forward kernel (its ETA instance when
-    eta != 0)."""
+    version; CUDA tensors launch the eta = 0 table kernel with the rows in
+    ``order`` (``rhs_self.row_order`` of the rows, computed when not given),
+    or the ETA instance when eta != 0."""
     if qr.device.type == "cpu":
         return rhs_cross_fwd_reference(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta)
-    return launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, eta != 0.0)
+    return launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, eta != 0.0, order)
 
 
-def launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, use_eta):
-    """One launch of the cross forward kernel on CUDA tensors: the ETA
+def launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, use_eta, order=None):
+    """One launch of a cross forward kernel on CUDA tensors: the ETA
     instance when ``use_eta`` (at any eta, 0 included), else the eta = 0
-    instance."""
+    table kernel."""
     if qr.device.type != "cuda":
         raise ValueError(f"rhs_cross_fwd: unsupported device {qr.device}")
     nb, m, d = _frames(qr)
@@ -134,13 +138,16 @@ def launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, use_eta):
                            ("mr", mr, qr.shape[:-1]), ("qc", qc, qc.shape),
                            ("pc", pc, qc.shape), ("mc", mc, qc.shape[:-1])):
         _check(name, t, shape, qr.device)
+    order = None if use_eta else _order_for(qr, mr, order, sigma)
     v = torch.empty_like(qr)
     w = torch.empty_like(qr)
     dc = torch.empty_like(mr)
     stream = torch.cuda.current_stream(qr.device).cuda_stream
     err = _lib().difficp_rhs_cross_fwd(
         qr.data_ptr(), pr.data_ptr(), mr.data_ptr(), qc.data_ptr(), pc.data_ptr(),
-        mc.data_ptr(), v.data_ptr(), w.data_ptr(), dc.data_ptr(), nb, m, n, d,
+        mc.data_ptr(), None if order is None else order.data_ptr(),
+        0 if order is None else order.shape[-1], block_rows(qr), v.data_ptr(), w.data_ptr(),
+        dc.data_ptr(), nb, m, n, d,
         1.0 / (sigma * sigma), int(bool(withlogdet)), float(eta), int(bool(use_eta)),
         stream)
     name = "rhs_cross_fwd_eta" if use_eta else "rhs_cross_fwd"
@@ -155,16 +162,16 @@ def _cotangent(g, like):
 
 class RHSCross(torch.autograd.Function):
     """(v, w, dcost per frame) of the rows against the columns (the contract
-    of ``make_rhs_cross``): forward, the cross kernel; backward, the
-    generated kernel-sums for both sides, on coordinates centered by the
-    column set's masked centroid."""
+    of ``make_rhs_cross``): forward, the cross kernel, the rows in ``order``
+    at eta = 0; backward, the generated kernel-sums for both sides, on
+    coordinates centered by the column set's masked centroid."""
 
     @staticmethod
-    def forward(ctx, qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta=0.0):
+    def forward(ctx, qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta=0.0, order=None):
         qr, pr, mr, qc, pc, mc = (t.contiguous() for t in (qr, pr, mr, qc, pc, mc))
         ctx.save_for_backward(qr, pr, mr, qc, pc, mc)
         ctx.sigma, ctx.withlogdet, ctx.eta = sigma, withlogdet, eta
-        v, w, dc = rhs_cross_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta)
+        v, w, dc = rhs_cross_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, order)
         return v, w, dc.sum(-1)
 
     @staticmethod
@@ -176,7 +183,7 @@ class RHSCross(torch.autograd.Function):
         c = ksum.mm_center(qc, mc)
         dqr, dpr, dqc, dpc = pair_poly.rhs_cross_bwd_poly(
             qr - c, pr, mr, qc - c, pc, mc, gv, gw, gc, ctx.sigma, ctx.eta)
-        return dqr, dpr, None, dqc, dpc, None, None, None, None
+        return dqr, dpr, None, dqc, dpc, None, None, None, None, None
 
 
 class RHSXCross(torch.autograd.Function):
@@ -237,10 +244,12 @@ class HamiltonianCross(torch.autograd.Function):
                 g * outs["dq_col"], g * outs["dp_col"], None, None, None)
 
 
-def rhs_cross(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta=0.0):
-    """(v, -Gq, dcost) of the rows against the columns, with autograd."""
+def rhs_cross(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta=0.0, order=None):
+    """(v, -Gq, dcost) of the rows against the columns, with autograd; at
+    eta = 0 the rows in ``order`` (``rhs_self.row_order`` of the rows,
+    computed per call when None)."""
     return RHSCross.apply(qr, pr, mr, qc, pc, mc, float(sigma), bool(withlogdet),
-                          float(eta))
+                          float(eta), order)
 
 
 def rhs_xcross(x, mx, qc, pc, mc, sigma, withlogdet, eta=0.0):

@@ -345,17 +345,19 @@ class RHSExt(torch.autograd.Function):
     ``make_rhs_ext``).  At eta = 0, forward: the self kernel on the support
     with logdet off, and the ext forward kernel; backward: the self backward
     kernel with a zero dcost cotangent for the support-support terms, and the
-    dx and dq/dp kernels for the cross terms, summed.  At eta != 0 the routes
-    of the module docstring, on coordinates shifted by one centroid."""
+    dx and dq/dp kernels for the cross terms, summed; the self kernels with
+    the support's rows in ``order`` (``rhs_self.row_order``, computed per
+    call when None).  At eta != 0 the routes of the module docstring, on
+    coordinates shifted by one centroid."""
 
     @staticmethod
-    def forward(ctx, q, p, x, mq, mx, sigma, withlogdet, eta=0.0):
+    def forward(ctx, q, p, x, mq, mx, sigma, withlogdet, eta=0.0, order=None):
         q, p, x, mq, mx = (t.contiguous() for t in (q, p, x, mq, mx))
         ctx.save_for_backward(q, p, x, mq, mx)
-        ctx.sigma, ctx.withlogdet, ctx.eta = sigma, withlogdet, eta
+        ctx.sigma, ctx.withlogdet, ctx.eta, ctx.order = sigma, withlogdet, eta, order
         if eta != 0.0:
             return _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta)
-        v, w, _ = rhs_self.rhs_self_fwd(q, p, mq, sigma, False)
+        v, w, _ = rhs_self.rhs_self_fwd(q, p, mq, sigma, False, order=order)
         vx, dc = rhs_ext_fwd(x, mx, q, p, mq, sigma, withlogdet)
         return v, w, dc.sum(-1), vx
 
@@ -378,11 +380,11 @@ class RHSExt(torch.autograd.Function):
                                                    ctx.eta)
             dq2, dp2, dx = pair_poly.rhs_ext_bwd_poly(
                 qc, p, xc, mq, mx, gx, gc if wl else zero_c, sigma, ctx.eta)
-            return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None
-        dq1, dp1 = rhs_self.rhs_self_bwd(q, p, mq, gv, gw, zero_c, sigma, False)
+            return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None, None
+        dq1, dp1 = rhs_self.rhs_self_bwd(q, p, mq, gv, gw, zero_c, sigma, False, ctx.order)
         dx = rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, wl)
         dq2, dp2 = rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, wl)
-        return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None
+        return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None, None
 
 
 def _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta):
@@ -402,11 +404,13 @@ def _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta):
     return v, w, dc, vx
 
 
-def lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q=None, mask_x=None, eta=0.0):
-    """Kernel-route fused ext RHS: (vq, -Gq, dcost, vx) with autograd."""
+def lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q=None, mask_x=None, eta=0.0,
+                  order=None):
+    """Kernel-route fused ext RHS: (vq, -Gq, dcost, vx) with autograd; at eta
+    = 0 the support's rows in ``order`` for the self kernels."""
     mq = _ones_mask(q) if mask_q is None else mask_q
     mx = _ones_mask(x) if mask_x is None else mask_x
-    return RHSExt.apply(q, p, x, mq, mx, float(sigma), bool(withlogdet), float(eta))
+    return RHSExt.apply(q, p, x, mq, mx, float(sigma), bool(withlogdet), float(eta), order)
 
 
 class VField(torch.autograd.Function):

@@ -9,14 +9,30 @@ mask m, the op returns per frame (the contract of
     dcost = -u sum_i m_i sum_j m_j k_ij (p_i.d_ij)       (0 without logdet)
 
 and with the gradcomponent field (eta != 0) the terms of ``csrc/rhs_self.cu``'s
-header besides.  Two kernels in ``csrc/rhs_self.cu`` compute it on the card:
-``rhs_self_fwd`` (v, w and per-row dcost partials; any eta, eta a template
-switch) and ``rhs_self_bwd`` (the VJP at eta = 0, dq and dp).  They replace
-the TPU kernels of ``difficp_tpu/ops/pallas_reductions.py`` (forward:
-``_rhs_self_sym_mm_kernel``, ``_rhs_self_sym_pair_kernel`` mode="fwd",
-``_rhs_self_mm_kernel``, and at any eta ``_rhs_self_kernel``; backward:
-``_rhs_self_bwd_mm_kernel``, ``_rhs_self_sym_pair_kernel`` mode="bwd").  What
+header besides.  Kernels in ``csrc/rhs_self.cu`` compute it on the card: at
+eta = 0 ``rhs_self_fwd`` (v, w and per-row dcost partials) and
+``rhs_self_bwd`` (the VJP, dq and dp), each a table kernel-sum on the tensor
+cores (3xTF32 wgmma) and a per-row epilogue; at eta != 0 the forward's ETA
+instance, a direct pair sum.  They replace the TPU kernels of
+``difficp_tpu/ops/pallas_reductions.py`` (forward: ``_rhs_self_sym_mm_kernel``,
+``_rhs_self_sym_pair_kernel`` mode="fwd", ``_rhs_self_mm_kernel``, and at any
+eta ``_rhs_self_kernel``; backward: ``_rhs_self_bwd_mm_kernel``,
+``_rhs_self_sym_pair_kernel`` mode="bwd", ``_rhs_self_bwd_kernel``).  What
 bounds them and how their design answers it is noted in the source.
+
+The tables are the JAX package's (``fwd_table``, ``bwd_table``: monomials of
+the columns' coordinates and payloads), and their recombination cancels terms
+of up to degree 3 in the coordinates: the error grows with (R / sigma)^2 for a
+block of rows of radius R.  So, as the JAX wrappers do, the eta = 0 kernels
+take the rows in Morton order (``morton_codes``, the port's copy of
+``_morton_order``'s codes) and centre each block's table on its rows' masked
+centroid; ``row_order`` also cuts the Z-curve where it jumps between distant
+parts of the cloud and pads the cuts with empty slots, so that no block
+straddles two (an int32 index per frame, -1 in padding slots; its blocks of
+``block_rows`` slots).  The order is computed at most once per
+loss+grad: ``lddmm`` takes it from q0 once per shoot or optimisation (q0 is
+fixed over one), the conjugate-gradient solve once per solve; a wrapper given
+none computes its own.  ``orders`` counts the orders computed.
 
 At eta != 0 ``RHSSelf`` routes as the JAX package's ``make_rhs_self``: the
 forward is the any-eta kernel below ``_POLY_FWD_MIN_M`` points a frame and the
@@ -24,9 +40,10 @@ generated forward of ``ops/pair_poly.py`` (generic kernel-sums on centered
 coordinates) from there on; the backward is always the generated one.
 
 Beside each kernel is its plain PyTorch version (``rhs_self_fwd_reference``,
-``rhs_self_bwd_reference``), chunked over rows so memory stays O(chunk M).  A
-tensor on the CPU takes the plain version; a CUDA tensor launches the kernel or
-the call raises.  ``launches`` counts kernel launches.
+``rhs_self_bwd_reference``, direct pair sums), chunked over rows so memory
+stays O(chunk M); it needs no order.  A tensor on the CPU takes the plain
+version; a CUDA tensor launches the kernel or the call raises.  ``launches``
+counts kernel launches.
 
 Shapes: q, p (..., M, D) with D in {2, 3}; m (..., M).  Leading dimensions are
 frames, one grid row of blocks each.
@@ -35,7 +52,9 @@ frames, one grid row of blocks each.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from difficp_torch.ops import _build
@@ -43,6 +62,15 @@ from difficp_torch.ops import _build
 # kernel launches since the last reset (reset by assigning 0); the any-eta
 # instance of the forward kernel counts apart
 launches = {"rhs_self_fwd": 0, "rhs_self_bwd": 0, "rhs_self_fwd_eta": 0}
+# row orders computed (row_order), reset likewise
+orders = {"row_order": 0}
+# bits a coordinate of the Morton code takes (the JAX _morton_order's default)
+MORTON_BITS = 10
+# the row order may add at most this share of the rows in padding (row_order)
+ORDER_PAD_BUDGET = 1 / 16
+# SMs of the card the blocks are sized for where the tensor is not on one
+# (an H100 SXM)
+_DEFAULT_SMS = 132
 
 # eta != 0 forwards switch from the any-eta kernels to the generated
 # kernel-sum forwards (pair_poly) at this many points a frame: support points
@@ -68,8 +96,8 @@ def fwd_ops_per_unordered_pair(d: int) -> int:
         t = (k~ pp) d;  w_i += t,  w_j -= t         3d + 1
         dcost += k~ (p_i - p_j).d                   3d + 1
 
-    The kernel itself takes each ordered pair apart: 11 d + 5 operations and
-    one exponential per ordered pair.
+    The kernel takes each ordered pair apart, on the tensor cores
+    (``tensor_flops_per_pair``).
     """
     return 15 * d + 2
 
@@ -90,10 +118,49 @@ def bwd_ops_per_unordered_pair(d: int) -> int:
         g = k~ (db.d);  dp_l += g p_j,  dp_j += g p_l    4d + 1
         h = k~ d;  dp_l -= h,  dp_j += h (times c)  3d
 
-    The kernel takes each ordered pair apart: 29 d + 7 operations and one
-    exponential per ordered pair.
+    The kernel takes each ordered pair apart, on the tensor cores.
     """
     return 34 * d + 3
+
+
+def fwd_table(d: int) -> list:
+    """The eta = 0 forward's payload columns, in the kernel's order, named as
+    the JAX package's ``_fwd_col_table``: 1, q_e, p_f, q_e p_f (q the
+    coordinates centred on the row block), 1 + 2d + d^2 columns."""
+    names = [("one",)]
+    names += [("q", e) for e in range(d)]
+    names += [("p", f) for f in range(d)]
+    names += [("qp", e, f) for e in range(d) for f in range(d)]
+    return names
+
+
+def bwd_table(d: int) -> list:
+    """The backward's payload columns, named as ``_bwd_col_table`` (G the
+    cotangent of v, H that of w): 45 columns at d = 2, 104 at d = 3."""
+    names = fwd_table(d)
+    names += [("G", f) for f in range(d)]
+    names += [("qG", e, f) for e in range(d) for f in range(d)]
+    names += [("Hp", e, f) for e in range(d) for f in range(d)]
+    names += [("Hqp", f) for f in range(d)]
+    names += [("qHp", a, e, f) for a in range(d) for e in range(d) for f in range(d)]
+    names += [("qHqp", a, f) for a in range(d) for f in range(d)]
+    names += [("qqp", a, b, f) for a in range(d) for b in range(a, d) for f in range(d)]
+    names += [("qq", a, b) for a in range(d) for b in range(a, d)]
+    names += [("pq",)]
+    names += [("qpq", a) for a in range(d)]
+    return names
+
+
+def tensor_flops_per_pair(d: int, backward: bool) -> int:
+    """Tensor-core work per ordered pair of the eta = 0 kernels' route: the
+    table padded to n-tiles of 8 columns (16 forward at d = 2 and 3; 48 and
+    104 backward), three TF32 products of two FLOP each (k_lo T_hi, k_hi
+    T_lo, k_hi T_hi).  Beside them the route takes ksum's FP32-pipe work per
+    pair (``ksum.fp32_ops_per_pair``: the distance, the exponent's scale and
+    the split of k) and one exponential; the table's build (C entries per
+    column and row block) and the epilogue (per row) are not counted."""
+    ncols = len(bwd_table(d) if backward else fwd_table(d))
+    return 3 * 2 * 8 * -(-ncols // 8)
 
 
 def fwd_eta_ops_per_unordered_pair(d: int, withlogdet: bool) -> int:
@@ -123,6 +190,103 @@ def _ones_mask(q):
 def _chunk_rows(m_cols: int, d: int, budget: int = 1 << 24) -> int:
     return max(1, budget // max(1, m_cols * (d + 1)))
 
+
+# ---------------------------------------------------------------------------
+# the rows' spatial order
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _spread(d: int, device: str) -> torch.Tensor:
+    """spread[v]: the MORTON_BITS bits of v moved to bits 0, d, 2d, ..."""
+    v = np.arange(1 << MORTON_BITS)
+    out = np.zeros_like(v)
+    for b in range(MORTON_BITS):
+        out |= ((v >> b) & 1) << (b * d)
+    return torch.as_tensor(out, device=device)
+
+
+def morton_codes(q, m):
+    """The Morton (Z-curve) code of each point, per frame: each masked-in
+    coordinate quantized to MORTON_BITS bits inside the frame's masked
+    bounding box, the bits interleaved; masked points get 2^(bits d), past
+    every other code.  The codes of the JAX package's
+    ``pallas_reductions._morton_order`` (the same float32 operations), per
+    frame of q (..., M, D)."""
+    d = q.shape[-1]
+    top = 2.0 ** MORTON_BITS - 1.0
+    on = m[..., None] > 0
+    lo = torch.where(on, q, torch.inf).amin(-2, keepdim=True)
+    hi = torch.where(on, q, -torch.inf).amax(-2, keepdim=True)
+    scale = top / (hi - lo).clamp_min(1e-30)
+    qq = ((q - lo) * scale).clamp(0.0, top).to(torch.int64)
+    spread = _spread(d, str(q.device))
+    code = spread[qq[..., 0]]
+    for e in range(1, d):
+        code = code | (spread[qq[..., e]] << e)
+    return torch.where(m > 0, code, 1 << (MORTON_BITS * d))
+
+
+def _sms(q):
+    return (torch.cuda.get_device_properties(q.device).multi_processor_count
+            if q.device.type == "cuda" else _DEFAULT_SMS)
+
+
+def block_rows(q, max_rows=256):
+    """Slots of the rows' order a block of the eta = 0 kernels takes: 64 G
+    for the most consumer warpgroups G (4, or max_rows / 64) whose blocks
+    still cover every SM of q's card once, else 64 (short frames keep the
+    SMs busy).  max_rows is 128 for the backward at d = 3, whose accumulators
+    take twice the registers."""
+    mm = q.shape[-2]
+    frames = q.numel() // max(1, mm * q.shape[-1])
+    sms = _sms(q)
+    for rows in (256, 128):
+        if rows <= max_rows and frames * -(-mm // rows) >= sms:
+            return rows
+    return 64
+
+
+def row_order(q, m, sigma):
+    """The eta = 0 kernels' row order, per frame: the rows sorted by Morton
+    code (stable, so ties keep their index order, as jnp.argsort), then cut
+    into runs wherever two consecutive (unmasked) points lie farther apart
+    than tau, each run padded with empty slots (-1) to a multiple of the
+    kernels' block (block_rows).  A Z-curve jumps between distant parts of a
+    thin cloud, and a block of rows that straddles a jump has a centroid far
+    from its rows, which the table's recombination amplifies as (R /
+    sigma)^2; cut there, every block lies in one run.  tau is the smallest of
+    sigma (1, 2, 4, 8) whose padding stays within ORDER_PAD_BUDGET of the
+    rows and adds no wave of blocks on the card, else no cut.  int32 (...,
+    Mo), Mo >= M the longest frame's slots."""
+    orders["row_order"] += 1
+    mm, d = q.shape[-2], q.shape[-1]
+    run = block_rows(q)
+    qf, mf = q.reshape(-1, mm, d), m.reshape(-1, mm)
+    # slots a frame may take: the budget, and the blocks of the waves the
+    # unpadded rows fill already
+    sms, nb = _sms(q), qf.shape[0]
+    waves = -(-nb * -(-mm // run) // sms)
+    cap = min(mm * (1 + ORDER_PAD_BUDGET), waves * sms // nb * run)
+    idx = torch.argsort(morton_codes(qf, mf), dim=-1, stable=True)
+    qs = torch.gather(qf, 1, idx[..., None].expand(-1, -1, d))
+    # masked points sort last: they open no run
+    gap = (qs[:, 1:] - qs[:, :-1]).norm(dim=-1) * (torch.gather(mf, 1, idx[:, 1:]) > 0)
+    pos = torch.arange(mm, device=q.device).expand_as(idx)
+    slot = pos
+    for tau in (sigma, 2 * sigma, 4 * sigma, 8 * sigma):
+        cut = torch.nn.functional.pad(gap > tau, (1, 0))  # row i opens a run
+        start = torch.where(cut, pos, 0).cummax(1).values  # its run's first row
+        last = torch.nn.functional.pad(cut[:, 1:], (0, 1))  # row i closes a run
+        pad = torch.where(last, (start - pos - 1) % run, 0)
+        before = torch.nn.functional.pad(pad.cumsum(1), (1, 0))  # padding before row i's run
+        cand = pos + torch.gather(before, 1, start)
+        if int(cand[:, -1].max()) + 1 <= cap:
+            slot = cand
+            break
+    out = torch.full((qf.shape[0], int(slot[:, -1].max()) + 1), -1, dtype=torch.int32,
+                     device=q.device)
+    out.scatter_(1, slot, idx.to(torch.int32))
+    return out.reshape(*q.shape[:-2], out.shape[-1])
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -215,9 +379,11 @@ def _lib():
     lib = _build.library()
     if not _bound:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.difficp_rhs_self_fwd_eta.argtypes = [vp] * 6 + [ci, ci, ci, cf, ci, cf, ci, vp]
+        lib.difficp_rhs_self_fwd_eta.argtypes = [vp] * 4 + [ci, ci] + [vp] * 3 + [
+            ci, ci, ci, cf, ci, cf, ci, vp]
         lib.difficp_rhs_self_fwd_eta.restype = ci
-        lib.difficp_rhs_self_bwd.argtypes = [vp] * 8 + [ci, ci, ci, cf, ci, vp]
+        lib.difficp_rhs_self_bwd.argtypes = [vp] * 7 + [ci, ci] + [vp] * 2 + [
+            ci, ci, ci, cf, ci, vp]
         lib.difficp_rhs_self_bwd.restype = ci
         _bound = True
     return lib
@@ -248,42 +414,60 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def rhs_self_fwd(q, p, m, sigma, withlogdet, eta=0.0):
+def _order_for(q, m, order, sigma):
+    """The rows' order for a launch: ``order`` checked, or computed."""
+    if order is None:
+        return row_order(q, m, sigma)
+    if order.device != q.device or order.dtype != torch.int32:
+        raise ValueError(f"order must be int32 on {q.device}, got {order.dtype} on "
+                         f"{order.device}")
+    if (tuple(order.shape[:-1]) != tuple(q.shape[:-2]) or order.shape[-1] < q.shape[-2]
+            or not order.is_contiguous()):
+        raise ValueError(f"order has shape {tuple(order.shape)}, expected "
+                         f"{tuple(q.shape[:-2])} + (at least {q.shape[-2]},) (contiguous)")
+    return order
+
+
+def rhs_self_fwd(q, p, m, sigma, withlogdet, eta=0.0, order=None):
     """(v, w, per-row dcost partials), with the gradcomponent terms when eta
     != 0.  CPU tensors take the plain version; CUDA tensors launch the
-    forward kernel (its ETA instance when eta != 0)."""
+    eta = 0 table kernel, with the rows in ``order`` (``row_order``, computed
+    when not given), or the ETA instance when eta != 0."""
     if q.device.type == "cpu":
         return rhs_self_fwd_reference(q, p, m, sigma, withlogdet, eta)
-    return launch_fwd(q, p, m, sigma, withlogdet, eta, eta != 0.0)
+    return launch_fwd(q, p, m, sigma, withlogdet, eta, eta != 0.0, order)
 
 
-def launch_fwd(q, p, m, sigma, withlogdet, eta, use_eta):
-    """One launch of the forward kernel on CUDA tensors: the ETA instance
-    when ``use_eta`` (at any eta, 0 included), else the eta = 0 instance."""
+def launch_fwd(q, p, m, sigma, withlogdet, eta, use_eta, order=None):
+    """One launch of a forward kernel on CUDA tensors: the ETA instance when
+    ``use_eta`` (at any eta, 0 included), else the eta = 0 table kernel."""
     if q.device.type != "cuda":
         raise ValueError(f"rhs_self_fwd: unsupported device {q.device}")
     nb, mm, d = _frames(q)
     _check("q", q, q.shape, q.device)
     _check("p", p, q.shape, q.device)
     _check("m", m, q.shape[:-1], q.device)
+    order = None if use_eta else _order_for(q, m, order, sigma)
     v = torch.empty_like(q)
     w = torch.empty_like(q)
     dc = torch.empty_like(m)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().difficp_rhs_self_fwd_eta(
-        q.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), w.data_ptr(),
-        dc.data_ptr(), nb, mm, d, 1.0 / (sigma * sigma), int(bool(withlogdet)),
-        float(eta), int(bool(use_eta)), stream)
+        q.data_ptr(), p.data_ptr(), m.data_ptr(), None if order is None else order.data_ptr(),
+        0 if order is None else order.shape[-1], block_rows(q), v.data_ptr(), w.data_ptr(),
+        dc.data_ptr(), nb, mm, d, 1.0 / (sigma * sigma),
+        int(bool(withlogdet)), float(eta), int(bool(use_eta)), stream)
     name = "rhs_self_fwd_eta" if use_eta else "rhs_self_fwd"
     _raise_on(err, name)
     launches[name] += 1
     return v, w, dc
 
 
-def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet):
+def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet, order=None):
     """(dq, dp) of the self RHS for cotangents a (of v), b (of w) and c (of
     each frame's dcost, shape q.shape[:-2]).  CPU tensors take the plain
-    version; CUDA tensors launch the backward kernel."""
+    version; CUDA tensors launch the backward table kernel, with the rows in
+    ``order`` (computed when not given)."""
     if q.device.type == "cpu":
         return rhs_self_bwd_reference(q, p, m, a, b, c, sigma, withlogdet)
     if q.device.type != "cuda":
@@ -293,12 +477,14 @@ def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet):
         _check(name, t, q.shape, q.device)
     _check("m", m, q.shape[:-1], q.device)
     _check("c", c, q.shape[:-2], q.device)
+    order = _order_for(q, m, order, sigma)
     dq = torch.empty_like(q)
     dp = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().difficp_rhs_self_bwd(
         q.data_ptr(), p.data_ptr(), m.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), dq.data_ptr(), dp.data_ptr(), nb, mm, d,
+        c.data_ptr(), order.data_ptr(), order.shape[-1], block_rows(q, 128 if d == 3 else 256),
+        dq.data_ptr(), dp.data_ptr(), nb, mm, d,
         1.0 / (sigma * sigma), int(bool(withlogdet)), stream)
     _raise_on(err, "rhs_self_bwd")
     launches["rhs_self_bwd"] += 1
@@ -325,18 +511,19 @@ def eta_forward(q, p, m, sigma, withlogdet, eta):
 
 class RHSSelf(torch.autograd.Function):
     """(v, w, dcost) = fused self RHS.  At eta = 0 the backward recomputes k
-    in the backward kernel from the saved q, p and m.  At eta != 0 the
-    forward is ``eta_forward`` and the backward the generated kernel-sums on
-    centered coordinates."""
+    in the backward kernel from the saved q, p and m, both kernels with the
+    rows in ``order`` (``row_order``; computed by each kernel wrapper when
+    None).  At eta != 0 the forward is ``eta_forward`` and the backward the
+    generated kernel-sums on centered coordinates."""
 
     @staticmethod
-    def forward(ctx, q, p, m, sigma, withlogdet, eta=0.0):
+    def forward(ctx, q, p, m, sigma, withlogdet, eta=0.0, order=None):
         q, p, m = q.contiguous(), p.contiguous(), m.contiguous()
         ctx.save_for_backward(q, p, m)
-        ctx.sigma, ctx.withlogdet, ctx.eta = sigma, withlogdet, eta
+        ctx.sigma, ctx.withlogdet, ctx.eta, ctx.order = sigma, withlogdet, eta, order
         if eta != 0.0:
             return eta_forward(q, p, m, sigma, withlogdet, eta)
-        v, w, dc = rhs_self_fwd(q, p, m, sigma, withlogdet)
+        v, w, dc = rhs_self_fwd(q, p, m, sigma, withlogdet, order=order)
         return v, w, dc.sum(-1)
 
     @staticmethod
@@ -353,20 +540,22 @@ class RHSSelf(torch.autograd.Function):
             dq, dp = pair_poly.rhs_self_bwd_poly(qc, p, m, gv, gw, gc, ctx.sigma,
                                                  ctx.eta)
         else:
-            dq, dp = rhs_self_bwd(q, p, m, gv, gw, gc, ctx.sigma, ctx.withlogdet)
-        return dq, dp, None, None, None, None
+            dq, dp = rhs_self_bwd(q, p, m, gv, gw, gc, ctx.sigma, ctx.withlogdet,
+                                  ctx.order)
+        return dq, dp, None, None, None, None, None
 
 
 class Hamiltonian(torch.autograd.Function):
     """H = 1/2 sum_ij m_i m_j k_ij p_i.p_j at eta = 0, per frame, from one
     forward-kernel call: H = 1/2 sum_i p_i.v_i.  The gradient is an epilogue
     on the saved outputs: dH/dq = -w, dH/dp = v (the JAX package's
-    ``pallas_ksum.make_hamiltonian``)."""
+    ``pallas_ksum.make_hamiltonian``); the rows in ``order`` as for
+    ``RHSSelf``."""
 
     @staticmethod
-    def forward(ctx, q, p, m, sigma):
+    def forward(ctx, q, p, m, sigma, order=None):
         q, p, m = q.contiguous(), p.contiguous(), m.contiguous()
-        v, w, _ = rhs_self_fwd(q, p, m, sigma, False)
+        v, w, _ = rhs_self_fwd(q, p, m, sigma, False, order=order)
         ctx.save_for_backward(v, w)
         return 0.5 * (p * v).sum((-2, -1))
 
@@ -374,7 +563,7 @@ class Hamiltonian(torch.autograd.Function):
     def backward(ctx, g):
         v, w = ctx.saved_tensors
         g = g[..., None, None]
-        return -g * w, g * v, None, None
+        return -g * w, g * v, None, None, None
 
 
 class HamiltonianEta(torch.autograd.Function):
@@ -412,15 +601,18 @@ class HamiltonianEta(torch.autograd.Function):
         return -g * w, g * v, None, None, None
 
 
-def lddmm_rhs_self(q, p, sigma, withlogdet, mask_q=None, eta=0.0):
-    """Kernel-route fused RHS: (vq, -Gq, dcost) with autograd."""
+def lddmm_rhs_self(q, p, sigma, withlogdet, mask_q=None, eta=0.0, order=None):
+    """Kernel-route fused RHS: (vq, -Gq, dcost) with autograd; at eta = 0
+    the rows in ``order`` (``row_order``, computed per kernel call when
+    None)."""
     m = _ones_mask(q) if mask_q is None else mask_q
-    return RHSSelf.apply(q, p, m, float(sigma), bool(withlogdet), float(eta))
+    return RHSSelf.apply(q, p, m, float(sigma), bool(withlogdet), float(eta), order)
 
 
-def hamiltonian(q, p, sigma, mask_q=None, eta=0.0):
-    """Kernel-route Hamiltonian, with autograd."""
+def hamiltonian(q, p, sigma, mask_q=None, eta=0.0, order=None):
+    """Kernel-route Hamiltonian, with autograd; ``order`` as for
+    ``lddmm_rhs_self``."""
     m = _ones_mask(q) if mask_q is None else mask_q
     if eta != 0.0:
         return HamiltonianEta.apply(q, p, m, float(sigma), float(eta))
-    return Hamiltonian.apply(q, p, m, float(sigma))
+    return Hamiltonian.apply(q, p, m, float(sigma), order)

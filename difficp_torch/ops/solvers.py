@@ -70,9 +70,12 @@ def kridge_solve_cg(q, v, sigma, alpha=1e-4, mask=None, tol=1e-6, maxiter=500):
 
     if mask is not None:
         v = v * mask[..., None]
+    # the rows' order of the self kernel-sum (q is fixed over the solve)
+    order = _red.row_order(q, sigma, mask)
 
     def matvec(b):
-        out = _red.kred(q, q, b if mask is None else b * mask[..., None], sigma, mask)
+        out = _red.kred(q, q, b if mask is None else b * mask[..., None], sigma, mask,
+                        order)
         if mask is not None:
             # identity rows for padded slots (same convention as _masked_gram)
             out = mask[..., None] * out + (1.0 - mask)[..., None] * b

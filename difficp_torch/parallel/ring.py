@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from difficp_torch.ops.rhs_cross import hamiltonian_cross, rhs_cross, rhs_xcross
+from difficp_torch.ops.rhs_self import row_order
 from difficp_torch.parallel.launch import all_reduce, rank_of, world
 
 
@@ -103,11 +104,12 @@ def _rotate(body, carry, rotating, group):
     return carry
 
 
-def ring_rhs_self(q, p, mask, sigma, withlogdet, group=None, eta=0.0):
+def ring_rhs_self(q, p, mask, sigma, withlogdet, group=None, eta=0.0, order=None):
     """Fused self RHS over a point-sharded set: q / p / mask are this rank's
-    shard; returns its (vq, -Gq) rows and the global dcost."""
+    shard, its rows in ``order`` at eta = 0 (``rhs_self.row_order``);
+    returns its (vq, -Gq) rows and the global dcost."""
     def body(carry, rot):
-        dvq, dmgq, ddc = rhs_cross(q, p, mask, *rot, sigma, withlogdet, eta)
+        dvq, dmgq, ddc = rhs_cross(q, p, mask, *rot, sigma, withlogdet, eta, order)
         return (dvq, dmgq, ddc) if carry is None else tuple(
             a + b for a, b in zip(carry, (dvq, dmgq, ddc)))
 
@@ -115,13 +117,15 @@ def ring_rhs_self(q, p, mask, sigma, withlogdet, group=None, eta=0.0):
     return vq, mgq, psum(dc, group)
 
 
-def ring_rhs_ext(q, p, x, mask_q, mask_x, sigma, withlogdet, group=None, eta=0.0):
+def ring_rhs_ext(q, p, x, mask_q, mask_x, sigma, withlogdet, group=None, eta=0.0,
+                 order=None):
     """Fused self + external RHS with BOTH sets point-sharded: the (q, p)
     support shards rotate; each rank folds them into its q rows (self terms,
-    logdet off) and its x rows (advection and the logdet cost).  Returns its
-    (vq, -Gq) rows, the global dcost and its vx rows."""
+    logdet off; in ``order`` at eta = 0) and its x rows (advection and the
+    logdet cost).  Returns its (vq, -Gq) rows, the global dcost and its vx
+    rows."""
     def body(carry, rot):
-        dvq, dmgq, _ = rhs_cross(q, p, mask_q, *rot, sigma, False, eta)
+        dvq, dmgq, _ = rhs_cross(q, p, mask_q, *rot, sigma, False, eta, order)
         dvx, ddc = rhs_xcross(x, mask_x, *rot, sigma, withlogdet, eta)
         new = (dvq, dmgq, dvx, ddc)
         return new if carry is None else tuple(a + b for a, b in zip(carry, new))
@@ -144,18 +148,21 @@ def make_local_shoot(sigma: float, eta: float, withlogdet: bool, nt: int,
                      group=None, scheme: str = "Euler"):
     """Geodesic shoot on this rank's shards, Euler or Ralston steps whose RHS
     is the ring reduction: ``(q, p, mask[, x, xmask]) -> (q1, p1, cost[,
-    x1])``, differentiable through autograd; cost is global."""
+    x1])``, differentiable through autograd; cost is global.  At eta = 0 the
+    rows' order of the shard's q at the start holds for every step."""
     if scheme not in ("Euler", "Ralston"):
         raise ValueError(f"Unknown integration scheme: {scheme}")
 
     def local_shoot(q, p, mask, x=None, xmask=None):
         dt = 1.0 / nt
         ext = x is not None
+        order = row_order(q, mask, sigma) if eta == 0.0 else None
 
         def rhs(q, p, x):
             if ext:
-                return ring_rhs_ext(q, p, x, mask, xmask, sigma, withlogdet, group, eta)
-            vq, mgq, dc = ring_rhs_self(q, p, mask, sigma, withlogdet, group, eta)
+                return ring_rhs_ext(q, p, x, mask, xmask, sigma, withlogdet, group, eta,
+                                    order)
+            vq, mgq, dc = ring_rhs_self(q, p, mask, sigma, withlogdet, group, eta, order)
             return vq, mgq, dc, None
 
         cost = torch.zeros((), dtype=q.dtype, device=q.device)

@@ -5,7 +5,8 @@ tests/test_cross_ops.py runs them (Pallas in interpret mode on the CPU, exact
 float32 products): values and both sides' VJPs, eta = 0 and 0.3, logdet on
 and off.  Also the two ring-only generated polynomials of ops/pair_poly.py
 against the JAX ones (tables and values), the term lists behind the cross
-forward's bound, and the cross forward's column partition.
+forward's bound, the cross forward's column partition, and the eta = 0 cross
+kernel's table scheme emulated on the CPU.
 
 On the CPU the ops take the kernel's plain PyTorch version; the CUDA kernel
 itself is checked against that on the card (tests/test_torch_cuda.py and
@@ -328,3 +329,33 @@ def test_mm_center_is_the_column_centroid():
     c = KS.mm_center(*_t(QC, MC))
     np.testing.assert_allclose(c.numpy()[0], np.asarray(_mm_center(*_j(QC, MC))),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("sigma", [0.1, 0.05])
+def test_cross_table_scheme_meets_the_forward_tolerance(sigma):
+    """The eta = 0 cross kernel's float32 arithmetic, emulated
+    (tests/tf32_emulation.table_scheme: the rows of one spiral cloud in
+    row_order's blocks, each block's table centred on its masked centroid
+    over the columns of a warped second cloud in their own order, 3xTF32 in
+    truncating 32-column tiles), within TOL_FWD (1e-5, relative to the
+    largest output; dcost's row sum relative to the sum of |partials|) of the
+    float64 plain version, at the ring's sigma (0.1) and the grid path's
+    (0.05); 2,048 rows against 1,536 columns, ~10% of each masked."""
+    from difficp_torch.examples.run_large import spiral_cloud, warp
+    from tf32_emulation import table_scheme
+
+    tol = 1e-5
+    rng = np.random.default_rng(5)
+    qr = spiral_cloud(2048, rng)
+    qc = warp(spiral_cloud(1536, rng), 2)
+    pr = (0.05 * rng.normal(size=(2048, 2))).astype(np.float32)
+    pc = (0.05 * rng.normal(size=(1536, 2))).astype(np.float32)
+    mr = (rng.uniform(size=2048) > 0.1).astype(np.float32)
+    mc = (rng.uniform(size=1536) > 0.1).astype(np.float32)
+    args = _t(qr, pr, mr, qc, pc, mc)
+    rv, rw, rdc = RC.rhs_cross_fwd_reference(*(t.double() for t in args), sigma, True)
+    order = RS.row_order(args[0], args[2], sigma)
+    v, w, dc = table_scheme(*args, sigma, order)
+    for x, ref in ((v, rv), (w, rw)):
+        assert float((x.double() - ref).abs().max() / ref.abs().max()) <= tol
+    assert float((dc.double().sum() - rdc.sum()).abs() / rdc.abs().sum()) <= tol

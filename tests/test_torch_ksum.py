@@ -21,6 +21,8 @@ from difficp_tpu.ops import pallas_ksum as PK
 from difficp_tpu.ops.pallas_reductions import _mm_center
 from difficp_torch.ops import ksum as KS
 from difficp_torch.ops import rhs_self as RS
+from tf32_emulation import ksum_3xtf32 as _ksum_3xtf32
+from tf32_emulation import tf32_rna as _tf32_rna
 
 torch.set_num_threads(1)
 
@@ -204,56 +206,6 @@ def test_ops_per_pair_counts_the_function():
                  "fp32": pairs * KS.fp32_ops_per_pair(2) / 67e12}
         assert max(terms, key=terms.get) == by
         assert abs(1e3 * terms[by] - want_ms) < 1e-3
-
-
-def _tf32_rna(v):
-    """Round float32 to TF32 (10 mantissa bits) to nearest, ties away from
-    zero, on the float32 bits through an int32 view: cvt.rna.tf32.f32."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_rz(v):
-    """The TF32 value the tensor cores read from a float32 register: its top
-    19 bits (truncation)."""
-    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _rz_float32(v):
-    """float64 to float32, rounded toward zero."""
-    f = v.float()
-    return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-def _ksum_3xtf32(x, y, table, my, sigma, passes=3, tile=KS.TILE_COLS):
-    """The kernel's arithmetic on the CPU: k = exp2(-u log2(e) r2 / 2) in
-    float32; P = m T; P = P_hi + P_lo with P_hi = rna(P), P_lo = rna(P -
-    P_hi) (the prep kernel); k_hi = rna(k) and k_lo = k - k_hi, which the
-    tensor cores read truncated to TF32.  Per 64-column tile of y, k-step by
-    k-step (8 columns), the kernel's three products in its order, k_lo P_hi,
-    k_hi P_lo, k_hi P_hi: each adds the exact sum of its 8 products (TF32 by
-    TF32 is exact) to the tile's accumulators and truncates the result to
-    float32 (toward zero), as the tensor cores accumulate; how they align the
-    addends within one k-step is not modelled.  Each tile's sums are then
-    added to the running totals in float32, rounded to nearest.  passes=1
-    keeps k_hi P_hi alone: one TF32 product."""
-    c2 = np.float32(-0.5 / sigma ** 2 * 1.4426950408889634)
-    d = x[..., :, None, :] - y[..., None, :, :]
-    k = torch.exp2(c2 * (d * d).sum(-1))  # (..., Nx, Ny)
-    p = (table * my[..., None, :]).transpose(-1, -2)  # (..., Ny, C)
-    k_hi, p_hi = _tf32_rna(k), _tf32_rna(p)
-    k_lo, p_lo = _tf32_rz(k - k_hi), _tf32_rna(p - p_hi)
-    products = [(k_lo, p_hi), (k_hi, p_lo), (k_hi, p_hi)][3 - passes:]
-    products = [(a.double(), b.double()) for a, b in products]
-    acc = torch.zeros((*x.shape[:-1], table.shape[-2]), dtype=torch.float32)
-    for j in range(0, y.shape[-2], tile):
-        part = torch.zeros_like(acc)
-        for s in range(j, min(j + tile, y.shape[-2]), 8):
-            sl = slice(s, s + 8)
-            for a, b in products:
-                part = _rz_float32(part.double() + a[..., sl] @ b[..., sl, :])
-        acc = acc + part
-    return acc.transpose(-1, -2)
 
 
 def _scheme_inputs(ncols):

@@ -15,6 +15,7 @@ import torch
 
 from difficp_tpu.ops import reductions as R
 from difficp_torch.ops import backend as TB
+from difficp_torch.ops import ksum as KS
 from difficp_torch.ops import reductions as TR
 from difficp_torch.ops import rhs_self as RS
 
@@ -295,3 +296,169 @@ def test_kernel_wrapper_rejects_bad_input():
         RS._check("q", qt.double(), qt.shape, qt.device)
     with pytest.raises(ValueError):
         RS._check("q", qt.t(), qt.shape, qt.device)
+
+
+# ---------------------------------------------------------------------------
+# the eta = 0 table kernels' scheme (csrc/rhs_self.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# float32 sums in another order than the plain version, relative to the
+# largest |plain| output (chip_smoke.py's bounds); dq's bar on registration
+# geometry (the JAX package's, BASELINE.md:111-121)
+TOL_FWD = 1e-5
+TOL_BWD = 1e-4
+TOL_DQ_REGISTRATION = 1e-5
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_tables_match_jax(d):
+    """The kernels' payload columns are the JAX package's, in names and
+    order: _fwd_col_table (9 / 16 columns) and _bwd_col_table (45 / 104)."""
+    from difficp_tpu.ops.pallas_reductions import _bwd_col_table, _fwd_col_table
+
+    assert RS.fwd_table(d) == list(_fwd_col_table(d))
+    assert RS.bwd_table(d) == list(_bwd_col_table(d))
+    assert len(RS.bwd_table(d)) == {2: 45, 3: 104}[d]
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_morton_codes_match_jax(d, monkeypatch):
+    """The port's Morton codes equal those _morton_order sorts by, on a
+    masked cloud with a padded tail (the codes, not the argsort: ties may
+    fall either way).  XLA's float32 division on the CPU is not IEEE-exact
+    (its 1023 / span can differ from the port's in the last bit), so a point
+    whose scaled coordinate lies within float32 rounding (1e-4 of a cell of
+    1/1023 of the span) of a cell boundary may fall into the next cell: the
+    codes are held equal everywhere else, with at most 0.5% such points.
+    The order sorts the codes, stably, and counts itself."""
+    import difficp_tpu.ops.pallas_reductions as PR
+
+    q, _, mask, *_ = _inputs(3000, d, seed=30 + d)
+    q[::7] = q[3::7]  # duplicated points: ties
+    monkeypatch.setattr(PR.jnp, "argsort", lambda code: code)
+    want = np.asarray(PR._morton_order(jnp.asarray(q), jnp.asarray(mask)))
+    qt, mt = _t(q, mask)
+    got = RS.morton_codes(qt, mt).numpy()
+    on = mask > 0
+    lo, hi = q[on].min(0), q[on].max(0)
+    cell = (q - lo) * np.float32(2.0 ** RS.MORTON_BITS - 1.0) / (hi - lo)
+    at_boundary = (np.abs(cell - np.round(cell)) < 1e-4).any(-1)
+    differ = got != want
+    assert not (differ & ~at_boundary).any()
+    assert differ.sum() <= 0.005 * len(want)
+    assert len(np.unique(want)) > 2000
+    RS.orders["row_order"] = 0
+    order = RS.row_order(qt[None], mt[None], SIG)[0]
+    assert order.dtype == torch.int32 and RS.orders["row_order"] == 1
+    # the runs of the order, padding taken out, are the codes' stable sort
+    np.testing.assert_array_equal(order[order >= 0].numpy(), np.argsort(got, kind="stable"))
+
+
+def _spiral(m, seed, d=2):
+    """A spiral cloud of the main paths (its points in random order, as
+    spiral_cloud draws them), random momenta, ~10% masked, cotangents."""
+    from difficp_torch.examples.run_large import spiral_cloud
+
+    rng = np.random.default_rng(seed)
+    q = spiral_cloud(m, rng, dim=d)
+    p = (0.05 * rng.normal(size=(m, d))).astype(np.float32)
+    mask = (rng.uniform(size=m) > 0.1).astype(np.float32)
+    a, b = rng.normal(size=(2, m, d)).astype(np.float32)
+    return _t(q, p, mask, a, b) + [float(np.float32(rng.normal()))]
+
+
+def _rel(x, ref):
+    return float((x.double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("sigma", [0.1, 0.05])
+def test_table_scheme_meets_the_tolerances(sigma):
+    """The table kernels' float32 arithmetic, emulated (tests/tf32_emulation:
+    blocks of 256 rows in the rows' Morton order, each block's table centred
+    on its masked centroid, TF32 splits as tf32_rna, 32-column tiles summed
+    in truncating accumulators), on a spiral cloud of 2,048 points at the
+    dense (0.1) and grid (0.05) paths' sigma: v, w and dcost within TOL_FWD,
+    dq and dp within TOL_BWD of the float64 plain versions, and dq within
+    TOL_DQ_REGISTRATION."""
+    from tf32_emulation import table_scheme
+
+    q, p, mask, a, b, c = _spiral(2048, seed=1)
+    f64 = [t.double() for t in (q, p, mask, a, b)]
+    rv, rw, rdc = RS.rhs_self_fwd_reference(*f64[:3], sigma, True)
+    rq, rp = RS.rhs_self_bwd_reference(*f64, torch.tensor(c, dtype=torch.float64), sigma,
+                                       True)
+    order = RS.row_order(q, mask, sigma)
+    v, w, dc = table_scheme(q, p, mask, q, p, mask, sigma, order)
+    dq, dp = table_scheme(q, p, mask, q, p, mask, sigma, order, backward=True, a=a, b=b, c=c)
+    assert max(_rel(v, rv), _rel(w, rw)) <= TOL_FWD
+    assert float((dc.double().sum() - rdc.sum()).abs() / rdc.abs().sum()) <= TOL_FWD
+    assert max(_rel(dq, rq), _rel(dp, rp)) <= TOL_BWD
+    assert _rel(dq, rq) <= TOL_DQ_REGISTRATION
+
+
+def test_table_scheme_needs_the_row_order():
+    """The negative control: the same emulated backward with the rows in the
+    cloud's own (random) order, each block then spanning the whole cloud,
+    puts dq above TOL_DQ_REGISTRATION at the grid path's sigma = 0.05, where
+    the Morton order keeps it within (test above)."""
+    from tf32_emulation import table_scheme
+
+    sigma = 0.05
+    q, p, mask, a, b, c = _spiral(2048, seed=1)
+    rq, _ = RS.rhs_self_bwd_reference(*(t.double() for t in (q, p, mask, a, b)),
+                                      torch.tensor(c, dtype=torch.float64), sigma, True)
+    natural = torch.arange(2048, dtype=torch.int32)
+    dq, _ = table_scheme(q, p, mask, q, p, mask, sigma, natural, backward=True, a=a, b=b, c=c)
+    assert _rel(dq, rq) > TOL_DQ_REGISTRATION
+
+
+def test_route_bound_counts():
+    """The table route's per-pair terms: three TF32 products of two FLOP on
+    the padded table (16 columns forward at d = 2 and 3; 48 and 104
+    backward), the distance, scale and split on the FP32 pipe (3d + 2, as
+    ksum's), one exponential; and at the dense main path's 65,536^2 (ordered pairs;
+    4.1875e12 exponentials a second, 495 TFLOP/s TF32, 67 TFLOP/s FP32) the
+    forward bound by the MUFU at 1.026 ms, the backward by the tensor cores
+    at 2.498 ms."""
+    assert RS.tensor_flops_per_pair(2, False) == 3 * 2 * 16
+    assert RS.tensor_flops_per_pair(3, False) == 3 * 2 * 16
+    assert RS.tensor_flops_per_pair(2, True) == 3 * 2 * 48
+    assert RS.tensor_flops_per_pair(3, True) == 3 * 2 * 104
+    assert KS.fp32_ops_per_pair(2) == 8
+    assert KS.fp32_ops_per_pair(3) == 11
+    pairs = 65536.0 ** 2
+    for backward, want_ms, by in ((False, 1.026, "mufu"), (True, 2.498, "tensor")):
+        terms = {"tensor": pairs * RS.tensor_flops_per_pair(2, backward) / 495e12,
+                 "mufu": pairs / 4.1875e12,
+                 "fp32": pairs * KS.fp32_ops_per_pair(2) / 67e12}
+        assert max(terms, key=terms.get) == by
+        assert abs(1e3 * terms[by] - want_ms) < 1e-3
+
+
+def test_row_order_cuts_the_z_curve_at_its_jumps():
+    """At the dense main path's size (a spiral of 65,536 points, sigma =
+    0.1) the Morton order's blocks of 256 rows (the kernels' there) reach a
+    radius of ~0.45, about the cloud's, where the Z-curve jumps between arms;
+    row_order cuts it at gaps wider than tau and pads each run to a whole
+    number of blocks: every row once, at most 1/16 more slots, every block
+    within 0.15 of its centroid."""
+    from difficp_torch.examples.run_large import spiral_cloud
+
+    m = 65536
+    q = torch.as_tensor(spiral_cloud(m, np.random.default_rng(65538)))
+    mask = torch.ones(m)
+    order = RS.row_order(q, mask, 0.1)
+    rows = RS.block_rows(q)
+    assert rows == 256 and m < order.shape[0] <= m * (1 + RS.ORDER_PAD_BUDGET)
+    np.testing.assert_array_equal(np.sort(order[order >= 0].numpy()), np.arange(m))
+
+    def radius(slots):
+        n = slots.shape[0] // rows * rows
+        out = 0.0
+        for blk in slots[:n].reshape(-1, rows):
+            pts = q[blk[blk >= 0].long()]
+            out = max(out, float((pts - pts.mean(0)).norm(dim=-1).max()))
+        return out
+
+    assert radius(order) <= 0.15
+    assert radius(torch.argsort(RS.morton_codes(q, mask), stable=True)) > 0.3
