@@ -24,7 +24,9 @@ Phases, each printing JSON lines with its seconds:
                  (median of 15) beside its plain version, its bound and, where
                  one PyTorch call computes the same function, that call's
                  time; the self kernels at the dense and the grid path's
-                 shapes, beside their table route's own bound;
+                 shapes; for the table kernels (self, cross, ext dx and
+                 dq/dp) the bound is the lower of the function's least work
+                 and their table route's own, each printed beside it;
   5. main path   (dense support) examples/run_large.main at N = 65,536;
                  then a small run through the kernel route against the dense
                  route on the card;
@@ -151,18 +153,23 @@ GRID_RUN = dict(max_em=25, em_tol=1e-3, reg_nmax=10, reg_tol=1e-3, reg_inner=10,
 # the eta = 0 kernels
 ETA0_KERNELS = ("rhs_self_fwd", "rhs_self_bwd", "rhs_ext_fwd", "rhs_ext_bwd_dx",
                "rhs_ext_bwd_dqdp", "kmin2")
+# the ext backward's table kernels and their tables (ops/rhs_ext.py)
+EXT_BWD_TABLES = {"rhs_ext_bwd_dx": "dx", "rhs_ext_bwd_dqdp": "dqdp"}
 # The eta = 0 paths' free energies: *_DIRECT as this script printed them with
 # the direct (FP32-pipe) self kernels, *_BEFORE as it printed them first with
-# the table kernels on the tensor cores, which sum in another order.  Each
-# path is held bit for bit to the second and within TOL_ROUTE_FE of the
-# first, the grid path over its first three entries (its start and its two
-# outer iterations): its fourth, one stepwise Reg_opt later, moves 6.2e-3
-# when the table kernels' outputs are scaled by 1 + 2^-22, as far as the two
-# kernels differ there (8.7e-3; tools/rhs_self_ab.py fe), so it measures the
-# line search, not the kernels.  The kernels along that path are held at its
-# end instead (hold_end_state).
+# the table kernels on the tensor cores, which sum in another order; the grid
+# path also GRID_FE_DIRECT_EXT_BWD, as it printed it with the self kernels on
+# the tensor cores and the ext backward (dx, dq/dp) still direct.  Each path
+# is held bit for bit to *_BEFORE and within TOL_ROUTE_FE of the others, the
+# grid path over their first three entries (its start and its two outer
+# iterations): its fourth, one stepwise Reg_opt later, moves 6.2e-3 when the
+# self table kernels' outputs are scaled by 1 + 2^-22, as far as two kernels
+# differ there (8.7e-3; tools/rhs_self_ab.py fe), so it measures the line
+# search, not the kernels.  The kernels along that path are held at its end
+# instead (hold_end_state).
 GRID_FE_DIRECT = [22501056.0, -1347914.25, -1391784.75]
-GRID_FE_BEFORE = [22501056.0, -1347946.625, -1391633.875, -1413118.75]
+GRID_FE_DIRECT_EXT_BWD = [22501056.0, -1347946.625, -1391633.875, -1413118.75]
+GRID_FE_BEFORE = [22501056.0, -1347924.625, -1392195.5, -1414159.75]
 DENSE_FE_DIRECT = [-134942.6875, -135171.546875]
 DENSE_FE_BEFORE = [-134947.359375, -135175.125]
 # dq of the eta = 0 backward at the dense main path's geometry (a spiral of
@@ -445,19 +452,39 @@ def phase_check(rs):
     return worst
 
 
-def route_bound(rs, pairs, d, backward):
-    """The eta = 0 table kernels' own bound over ordered pairs (ms): the
-    largest of the exponentials over the MUFU rate, the padded table's
-    3xTF32 products over the TF32 peak and the FP32-pipe remainder over the
-    FP32 peak (ops/rhs_self.py tensor_flops_per_pair, ops/ksum.py
-    fp32_ops_per_pair)."""
+def route_bound(pairs, d, tensor_flops):
+    """The eta = 0 table kernels' own bound over the pairs they take (ms):
+    the largest of the exponentials over the MUFU rate, the padded table's
+    3xTF32 products (tensor_flops a pair: ops/rhs_self.py and
+    ops/rhs_ext.py tensor_flops_per_pair) over the TF32 peak and the
+    FP32-pipe remainder (ops/ksum.py fp32_ops_per_pair) over the FP32
+    peak."""
     from difficp_torch.ops import ksum as ks
 
     terms = {"mufu": pairs / PEAK_EX2_PER_S * 1e3,
-             "tensor": pairs * rs.tensor_flops_per_pair(d, backward) / PEAK_TF32_FLOPS * 1e3,
+             "tensor": pairs * tensor_flops / PEAK_TF32_FLOPS * 1e3,
              "fp32": pairs * ks.fp32_ops_per_pair(d) / PEAK_FP32_FLOPS * 1e3}
     by = max(terms, key=terms.get)
     return dict(bound_route_ms=terms[by], bound_route_by=by)
+
+
+TABLE_BOUND_KEYS = ("bound_least_work_ms", "bound_least_work_by", "bound_route_ms",
+                    "bound_route_by")
+
+
+def table_bound(least, pairs, d, tensor_flops):
+    """The bound of an eta = 0 table kernel: the lower of the function's least
+    work on the FP32 pipe (``least``, from bound) and the table route's own
+    (route_bound over ``pairs``; the bytes bound beneath both), as bound_ms;
+    each beside it (bound_least_work_ms, bound_route_ms)."""
+    rb = route_bound(pairs, d, tensor_flops)
+    out = dict(least, **rb, bound_least_work_ms=least["bound_ms"],
+               bound_least_work_by=least["bound_by"])
+    route = max(rb["bound_route_ms"], least["bound_bytes_ms"])
+    if route < least["bound_ms"]:
+        out.update(bound_ms=route,
+                   bound_by="bytes" if route == least["bound_bytes_ms"] else "operations")
+    return out
 
 
 def phase_timing(rs):
@@ -466,8 +493,9 @@ def phase_timing(rs):
     grid support at sigma = 0.05, logdet off and a zero dcost cotangent, as
     the ext RHS runs them), each with the rows' order computed once
     beforehand, as the paths do: CUDA events (median of 15) beside the plain
-    version, the bound (the function's least work) and the table route's own
-    bound (route_bound); and the row order's own time at the dense shape."""
+    version and the bound (table_bound: the lower of the function's least
+    work and the table route's own); and the row order's own time at the
+    dense shape."""
     import torch
 
     d = 2
@@ -509,13 +537,13 @@ def phase_timing(rs):
             plain()
             torch.cuda.synchronize()
             plain_ms = cuda_ms(plain, 3)
-            bd = bound(upairs, ops, upairs, nbytes)
-            rb = route_bound(rs, opairs, d, backward)
+            bd = table_bound(bound(upairs, ops, upairs, nbytes), opairs, d,
+                             rs.tensor_flops_per_pair(d, backward))
             key = name if shape == "dense" else f"{name}_grid"
             out[key] = dict(shape=f"{nb} x {m} x {m}", withlogdet=wl, ms=ms,
-                            plain_ms=plain_ms, library_ms=None, **bd, **rb,
+                            plain_ms=plain_ms, library_ms=None, **bd,
                             share_of_bound=bd["bound_ms"] / ms,
-                            share_of_route_bound=rb["bound_route_ms"] / ms,
+                            share_of_route_bound=bd["bound_route_ms"] / ms,
                             unordered_pairs=upairs, fp32_ops_per_unordered_pair=ops,
                             gpair_per_s=opairs / (ms * 1e-3) / 1e9)
             emit({"phase": "timing", "kernel": name, "d": d, **out[key]})
@@ -748,10 +776,13 @@ def phase_check_ext(re, k2):
 
 def phase_timing_ext(rs, re, k2):
     """Each new kernel at the grid main path's shape (K = 10, N = 65,536,
-    the run's grid M, d = 2); kmin2 at the coverage pass's (nt + 1) K
-    frames.  Each kernel of the grid path, the self kernels on the support
-    included, is first held against its plain version in float64 on the same
-    inputs.  Then CUDA events, median of 15."""
+    the run's grid M, d = 2; dq/dp with the support's order and dx with the
+    data rows' order computed once beforehand, as the path does); kmin2 at
+    the coverage pass's (nt + 1) K frames.  Each kernel of the grid path, the
+    self kernels on the support included, is first held against its plain
+    version in float64 on the same inputs.  Then CUDA events, median of 15,
+    beside the bound: the function's least work, for dx and dq/dp the lower
+    of that and their table route's own (table_bound)."""
     import numpy as np
     import torch
     from difficp_torch.utils.point_sets import grid_support
@@ -767,6 +798,9 @@ def phase_timing_ext(rs, re, k2):
     p = 0.05 * torch.randn(q.shape, generator=g, device="cuda")
     mx = torch.ones((k, n), device="cuda")
     mq = torch.ones((k, m), device="cuda")
+    # the support's and the data rows' orders, once per optimisation on the path
+    order = rs.row_order(q, mq, GRID_SIGMA)
+    xorder = re.data_order(x, mx, GRID_SIGMA)
     gx = torch.randn(x.shape, generator=g, device="cuda")
     gc = torch.randn((k,), generator=g, device="cuda")
     gv = torch.randn(q.shape, generator=g, device="cuda")
@@ -821,10 +855,10 @@ def phase_timing_ext(rs, re, k2):
         vx, dc = re.rhs_ext_fwd(x, mx, q, p, mq, sig, wl)
         rvx, rdc = re.rhs_ext_fwd_reference(x8, mx8, q8, p8, mq8, sig, wl)
         hold("rhs_ext_fwd", [vx], [rvx], TOL_FWD, (dc, rdc), withlogdet=wl, **shape)
-        hold("rhs_ext_bwd_dx", [re.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sig, wl)],
+        hold("rhs_ext_bwd_dx", [re.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sig, wl, xorder)],
              [re.rhs_ext_bwd_dx_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl)],
              TOL_BWD, withlogdet=wl, **shape)
-        hold("rhs_ext_bwd_dqdp", re.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sig, wl),
+        hold("rhs_ext_bwd_dqdp", re.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sig, wl, order),
              re.rhs_ext_bwd_dqdp_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl),
              TOL_BWD, withlogdet=wl, **shape)
     del f64, x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8, got, ref, vx, dc, rvx, rdc
@@ -860,12 +894,13 @@ def phase_timing_ext(rs, re, k2):
          lambda: re.rhs_ext_fwd_reference(x, mx, q, p, mq, sig, True),
          None, pairs, re.fwd_ops_per_pair(d), pairs,
          side_x * (d + 1) + side_q * (2 * d + 1) + side_x * d + 4.0 * k),
-        ("rhs_ext_bwd_dx", lambda: re.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sig, True),
+        ("rhs_ext_bwd_dx",
+         lambda: re.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sig, True, xorder),
          lambda: re.rhs_ext_bwd_dx_reference(x, mx, gx, q, p, mq, gc, sig, True),
          None, pairs, re.dx_ops_per_pair(d), pairs,
          side_x * (2 * d + 1) + side_q * (2 * d + 1) + 4.0 * k + side_x * d),
         ("rhs_ext_bwd_dqdp",
-         lambda: re.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sig, True),
+         lambda: re.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sig, True, order),
          lambda: re.rhs_ext_bwd_dqdp_reference(x, mx, gx, q, p, mq, gc, sig, True),
          None, pairs, re.dqdp_ops_per_pair(d), pairs,
          side_x * (2 * d + 1) + side_q * (2 * d + 1) + 4.0 * k + side_q * 2 * d),
@@ -888,6 +923,9 @@ def phase_timing_ext(rs, re, k2):
             torch.cuda.synchronize()
             library_ms = cuda_ms(library, 3)
         bd = bound(npairs, ops, exps, nbytes)
+        if name in EXT_BWD_TABLES:
+            bd = table_bound(bd, npairs, d, re.tensor_flops_per_pair(d, EXT_BWD_TABLES[name]))
+            bd["share_of_route_bound"] = bd["bound_route_ms"] / ms
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bd,
                          share_of_bound=bd["bound_ms"] / ms, pairs=npairs,
                          fp32_ops_per_pair=ops, bytes=nbytes,
@@ -950,19 +988,23 @@ def phase_grid_main_path(counters, orders):
         fail("grid_main_path", "free energy did not decrease over the run")
     if tuple(x1.shape) != (k, n, 2) or not bool(torch.isfinite(x1).all()):
         fail("grid_main_path", "warped points have the wrong shape or are not finite")
-    hold_fes("grid_main_path", fe_seq, {"direct": GRID_FE_DIRECT}, GRID_FE_BEFORE)
-    hold_end_state("grid_main_end_state", psr, float64_self_kernels)
+    hold_fes("grid_main_path", fe_seq, {"direct": GRID_FE_DIRECT,
+                                        "direct_ext_bwd": GRID_FE_DIRECT_EXT_BWD[:3]},
+             GRID_FE_BEFORE)
+    hold_end_state("grid_main_end_state", psr, float64_table_kernels)
     return psr, flat
 
 
 @contextlib.contextmanager
-def float64_self_kernels():
-    """The self kernels (rhs_self.rhs_self_fwd and rhs_self_bwd) taken by
-    their plain versions in float64, rounded to float32 at their outputs,
-    inside the block; these calls launch no kernel."""
+def float64_table_kernels():
+    """The eta = 0 table kernels (rhs_self.rhs_self_fwd and rhs_self_bwd,
+    rhs_ext.rhs_ext_bwd_dx and rhs_ext_bwd_dqdp) taken by their plain
+    versions in float64, rounded to float32 at their outputs, inside the
+    block; these calls launch no kernel."""
+    from difficp_torch.ops import rhs_ext as re
     from difficp_torch.ops import rhs_self as rs
 
-    fwd, bwd = rs.rhs_self_fwd, rs.rhs_self_bwd
+    kernels = (rs.rhs_self_fwd, rs.rhs_self_bwd, re.rhs_ext_bwd_dx, re.rhs_ext_bwd_dqdp)
 
     def plain_fwd(q, p, m, sigma, withlogdet, eta=0.0, order=None):
         return tuple(t.float() for t in rs.rhs_self_fwd_reference(
@@ -972,11 +1014,21 @@ def float64_self_kernels():
         return tuple(t.float() for t in rs.rhs_self_bwd_reference(
             *(t.double() for t in (q, p, m, a, b, c)), sigma, withlogdet))
 
+    def plain_dx(*args, xorder=None):
+        args = args[:9]  # without the data rows' order
+        return re.rhs_ext_bwd_dx_reference(*(t.double() for t in args[:7]), *args[7:]).float()
+
+    def plain_dqdp(*args, order=None):
+        args = args[:9]  # without the support's order
+        return tuple(t.float() for t in re.rhs_ext_bwd_dqdp_reference(
+            *(t.double() for t in args[:7]), *args[7:]))
+
     rs.rhs_self_fwd, rs.rhs_self_bwd = plain_fwd, plain_bwd
+    re.rhs_ext_bwd_dx, re.rhs_ext_bwd_dqdp = plain_dx, plain_dqdp
     try:
         yield
     finally:
-        rs.rhs_self_fwd, rs.rhs_self_bwd = fwd, bwd
+        rs.rhs_self_fwd, rs.rhs_self_bwd, re.rhs_ext_bwd_dx, re.rhs_ext_bwd_dqdp = kernels
 
 
 def phase_grid_route_agreement(backend):
@@ -2033,7 +2085,8 @@ def phase_timing_cross(rc, pp):
     the whole set as rows and columns; #10 at RING_N points, logdet on, #11
     at RING_ETA_N), first held against its float64 plain version there, then
     timed with CUDA events (median of 15) beside its plain version and its
-    bound (the function's least work per ordered pair); then ksum at every
+    bound (the function's least work per ordered pair, at eta = 0 the lower
+    of that and the table route's own: table_bound); then ksum at every
     kernel-sum shape of the two ring paths (ksum_calls)."""
     import torch
     from difficp_torch.ops import rhs_self as rs
@@ -2074,7 +2127,7 @@ def phase_timing_cross(rc, pp):
         nbytes = 4.0 * n * (2 * d + 1) * 3
         bd = bound(pairs, ops, pairs, nbytes)
         if eta == 0.0:
-            bd.update(route_bound(rs, pairs, d, False))
+            bd = table_bound(bd, pairs, d, rs.tensor_flops_per_pair(d, False))
         out[name] = dict(M=n, N=n, d=d, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
                          share_of_bound=bd["bound_ms"] / ms, pairs=pairs,
                          fp32_ops_per_pair=ops, gpair_per_s=pairs / (ms * 1e-3) / 1e9)
@@ -2391,13 +2444,14 @@ def main():
             "max_rel_err": worst[name][0], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")}
+        # the table kernels: the least work's and their route's bounds, of
+        # which bound_ms is the lower
+        entry.update({key: t[key] for key in TABLE_BOUND_KEYS if key in t})
         if name in dense_launches:
-            # the table kernels: their route's own bound, and the grid shape
-            entry.update(shape=t["shape"], bound_route_ms=t["bound_route_ms"],
-                         bound_route_by=t["bound_route_by"],
+            # and the grid shape
+            entry.update(shape=t["shape"],
                          shapes=[{key: r[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
-                                                          "bound_by", "bound_route_ms",
-                                                          "bound_route_by")}
+                                                          "bound_by", *TABLE_BOUND_KEYS)}
                                  for r in (t, timing[f"{name}_grid"])])
         kernels.append(entry)
     pk = "difficp_tpu/ops/pallas_ksum.py"
@@ -2440,7 +2494,7 @@ def main():
             "shape": f"{t['M']} x {t['N']}", "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **{key: t[key] for key in ("bound_route_ms", "bound_route_by") if key in t}})
+            **{key: t[key] for key in TABLE_BOUND_KEYS if key in t}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -280,25 +280,6 @@ rhs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
 constexpr int kLongJ = 64;
 constexpr int kShortJ = 32;
 constexpr int kLongJMinCols = 8192;  // columns from which a launch takes kLongJ
-// 16-byte words a core matrix takes in a staged table: its 8 rows and one
-// unused word, so that the core matrices beside it in K start 144 bytes on
-// (LBO) and the next 8 rows 288 bytes on (SBO)
-constexpr int kCoreWords = 9;
-
-template <int I>
-struct Int {
-  static constexpr int value = I;
-};
-
-// f(Int<I>{}) for I = I0 .. END - 1, each I a constant expression
-template <int I0, int END, class F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (I0 < END) {
-    f(Int<I0>{});
-    static_for<I0 + 1, END>(f);
-  }
-}
-
 // The values of a column j that its table entries are products of.
 template <int D>
 struct Base {

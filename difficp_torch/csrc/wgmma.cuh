@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the tensor-core kernels (ksum.cu,
-// rhs_self.cu): the TF32 split, the MUFU exponential, wgmma with its fences
-// and waits, shared-memory matrix descriptors, mbarriers and bulk copies.
+// rhs_self.cu, rhs_ext.cu): the TF32 split, the MUFU exponential, wgmma with
+// its fences and waits, shared-memory matrix descriptors and the staged
+// tables' core-matrix stride, mbarriers and bulk copies.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +44,26 @@ __device__ __forceinline__ void wgmma_wait() {
 // compiler's back, so they are kept live, and read, only after a wait.
 __device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 __device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// 16-byte words a core matrix takes in a table staged for wgmma's B by the
+// table kernels (rhs_self.cu, rhs_ext.cu): its 8 rows and one unused word, so
+// that the core matrices beside it in K start 144 bytes on (LBO) and the
+// next 8 rows 288 bytes on (SBO)
+constexpr int kCoreWords = 9;
+
+template <int I>
+struct Int {
+  static constexpr int value = I;
+};
+
+// f(Int<I>{}) for I = I0 .. END - 1, each I a constant expression
+template <int I0, int END, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I0 < END) {
+    f(Int<I0>{});
+    static_for<I0 + 1, END>(f);
+  }
+}
 
 // Shared-memory matrix descriptor of a K-major B without swizzle: 8-row by
 // 16-byte core matrices of 128 contiguous bytes, the one beside it in K at

@@ -87,37 +87,41 @@ class ShootState(NamedTuple):
     x: Optional[torch.Tensor] = None  # advected external points, or None
 
 
-def _ode(cfg: LDDMMConfig, qmask, xmask, order):
+def _ode(cfg: LDDMMConfig, qmask, xmask, order, xorder):
     """Hamiltonian ODE right-hand side (LDDMM.py:176-227), fused; every step
-    keeps the rows' order of q0."""
+    keeps the rows' orders of q0 and x0."""
     def fn(s: ShootState) -> ShootState:
         if s.x is None:
             vq, mgq, dcost = red.lddmm_rhs_self(
                 s.q, s.p, cfg.sigma, cfg.eta, cfg.withlogdet, qmask, order)
             return ShootState(q=vq, p=mgq, cost=dcost, x=None)
         vq, mgq, dcost, vx = red.lddmm_rhs_ext(
-            s.q, s.p, s.x, cfg.sigma, cfg.eta, cfg.withlogdet, qmask, xmask, order)
+            s.q, s.p, s.x, cfg.sigma, cfg.eta, cfg.withlogdet, qmask, xmask, order,
+            xorder)
         return ShootState(q=vq, p=mgq, cost=dcost, x=vx)
 
     return fn
 
 
 def shoot(cfg: LDDMMConfig, q0, p0, x0=None, qmask=None, xmask=None,
-          save_traj: bool = False, order=None):
+          save_traj: bool = False, order=None, xorder=None):
     """Simulate the geodesic ODE from (q0, p0), optionally advecting an
     external point set x0 (LDDMM.py:286-299).  ``order``: the rows' order of
-    the eta = 0 self kernels at q0 (``backend.row_order``), computed here when
-    None; one for every step, since the support moves little from q0.
+    the eta = 0 self kernels at q0 (``backend.row_order``), ``xorder`` that of
+    the data rows at x0 (``backend.data_order``), each computed here when
+    None; one for every step, since the points move little from q0 and x0.
 
     :return: (final ShootState, trajectory ShootState with nt+1 leading dim
         or None)
     """
     if order is None:
         order = red.row_order(q0, cfg.sigma, qmask, cfg.eta, x0)
+    if xorder is None and x0 is not None:
+        xorder = red.data_order(x0, q0, cfg.sigma, xmask, cfg.eta)
     state0 = ShootState(
         q=q0, p=p0, cost=torch.zeros(q0.shape[:-2], dtype=q0.dtype,
                                      device=q0.device), x=x0)
-    return integrate(_ode(cfg, qmask, xmask, order), state0, nt=cfg.nt,
+    return integrate(_ode(cfg, qmask, xmask, order, xorder), state0, nt=cfg.nt,
                      scheme=cfg.scheme, save_traj=save_traj)
 
 
@@ -144,12 +148,14 @@ class OptimizeResult(NamedTuple):
 
 def _make_lossfn_aux(cfg, dataloss, q0, x0, qmask, xmask):
     """p -> (trajloss + dataloss(arrival points), (final, trajl, datal)); the
-    arrival points are the warped data x1 when x0 is given, else q1.  q0 is
-    fixed, so the rows' order is computed once here for every evaluation."""
+    arrival points are the warped data x1 when x0 is given, else q1.  q0 and
+    x0 are fixed, so the rows' orders are computed once here for every
+    evaluation."""
     order = red.row_order(q0, cfg.sigma, qmask, cfg.eta, x0)
+    xorder = None if x0 is None else red.data_order(x0, q0, cfg.sigma, xmask, cfg.eta)
 
     def lossfn(p):
-        final, _ = shoot(cfg, q0, p, x0, qmask, xmask, order=order)
+        final, _ = shoot(cfg, q0, p, x0, qmask, xmask, order=order, xorder=xorder)
         trajl = trajloss(cfg, q0, p, final.cost, qmask, order)
         datal = dataloss(final.q if x0 is None else final.x)
         return trajl + datal, (final, trajl, datal)

@@ -70,6 +70,18 @@ def row_order(q, sigma, mask_q=None, eta=0.0, x=None):
                              float(sigma))
 
 
+def data_order(x, q, sigma, mask_x=None, eta=0.0):
+    """The data rows' order of the eta = 0 ext backward's dx kernel at x
+    (``rhs_ext.data_order``) for the RHS at (q, x), or None where that
+    RHS takes none.  Callers compute it once for every RHS at the same x0
+    and pass it on (``xorder=``)."""
+    m = q.shape[-2]
+    if eta != 0.0 or _use_dense(m, m + x.shape[-2]):
+        return None
+    return _ext.data_order(x, _kernel._ones_mask(x) if mask_x is None else mask_x,
+                           float(sigma))
+
+
 def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None, order=None):
     """(vq, -Gq, dcost) of the self RHS, dense or kernel route."""
     m = q.shape[-2]
@@ -78,13 +90,15 @@ def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None, order=None):
     return _kernel.lddmm_rhs_self(q, p, sigma, withlogdet, mask_q, eta, order)
 
 
-def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None, order=None):
+def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None, order=None,
+                  xorder=None):
     """(vq, -Gq, dcost, vx) of the RHS with external points x, dense or kernel
     route, on m (m + n_x) pairs per frame (JAX backend.py:122-130)."""
     m = q.shape[-2]
     if _use_dense(m, m + x.shape[-2]):
         return _dense.lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q, mask_x)
-    return _ext.lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q, mask_x, eta, order)
+    return _ext.lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q, mask_x, eta, order,
+                              xorder)
 
 
 def hamiltonian(q, p, sigma, eta, mask_q=None, order=None):

@@ -12,11 +12,18 @@ of ``difficp_tpu.ops.reductions.lddmm_rhs_ext`` at eta = 0):
 Three kernels in ``csrc/rhs_ext.cu`` compute the cross terms on the card:
 ``rhs_ext_fwd`` (vx and per-row dcost partials), ``rhs_ext_bwd_dx`` and
 ``rhs_ext_bwd_dqdp`` (the VJP of (vx, dcost): dx per data point; dq, dp per
-support point, as partial sums over chunks of the data axis).  They replace
-the TPU kernels of ``difficp_tpu/ops/pallas_reductions.py``: ``_vx_mm_kernel``
-(via ``_vx_fwd_pallas``) and ``_ext_bwd_dx_mm_kernel`` +
-``_ext_bwd_dqdp_mm_kernel`` (via ``_ext_bwd_pallas``).  What bounds them and
-how their design answers it is noted in the source.
+support point).  They replace the TPU kernels of
+``difficp_tpu/ops/pallas_reductions.py``: ``_vx_mm_kernel`` (via
+``_vx_fwd_pallas``) and ``_ext_bwd_dx_mm_kernel`` +
+``_ext_bwd_dqdp_mm_kernel`` (via ``_ext_bwd_pallas``).  The forward is a
+direct pair sum; the two VJP kernels are, as those TPU kernels, a table
+kernel-sum on the tensor cores (3xTF32 wgmma) and a per-row epilogue, the
+tables (``dx_table``, ``dqdp_table``) centred on each block of rows, the
+rows taken in a spatial order (``rhs_self.row_order``): the dx kernel the
+data rows in ``xorder`` (``data_order``, which ``RHSExt`` receives),
+the dq/dp kernel the support's rows in the self kernels' ``order`` and the
+data axis in chunks whose partials it sums itself, in a fixed order.
+What bounds them and how their design answers it is noted in the source.
 
 The forward kernel takes eta as a template switch: its ETA instance adds the
 gradcomponent terms of ``csrc/rhs_ext.cu``'s header (the TPU's any-eta
@@ -50,12 +57,25 @@ from difficp_torch.ops.rhs_self import _check, _chunk_rows, _frames, _ones_mask,
 launches = {"rhs_ext_fwd": 0, "rhs_ext_bwd_dx": 0, "rhs_ext_bwd_dqdp": 0,
             "rhs_ext_fwd_eta": 0}
 
-# data rows per chunk of the dq/dp kernel's split of the data axis: at
-# N = 65,536 and 10 frames of M ~ 342 support points, 32 chunks x 3 row
-# blocks x 10 frames = 960 blocks for 132 SMs
-DQDP_CHUNK = 2048
+# blocks a SM the dq/dp kernel's split of the data axis aims at
+# (dqdp_chunk_cols): at N = 65,536 and 10 frames of the grid support's ~380
+# points (7 row blocks of 64 a frame), 31 chunks of 2,176 columns, 2,170
+# blocks for 132 SMs (8 and 32 a SM ran slower on an H100)
+DQDP_BLOCKS_PER_SM = 16
+# slots of the data order a block of the dx kernel takes at most
+# (dx_block_rows; blocks of 256 ran slower on an H100)
+DX_MAX_ROWS = 128
+# the share of the data rows the data order may add in padding (data_order):
+# a sparse cloud at small sigma needs cuts the self kernels' budget
+# (rhs_self.ORDER_PAD_BUDGET) refuses, and without them a block of rows
+# spans up to 20 sigma (2 frames of 5,003 points at d = 3, sigma = 0.025)
+DATA_ORDER_PAD_BUDGET = 1 / 8
 
 _bound = False
+# the dq/dp kernel's scratch per device: the chunk partials and the row
+# blocks' tickets (int32, zero, and left zero by every launch), grown as
+# needed; launches on one stream at a time share it
+_workspace = {}
 
 
 def fwd_ops_per_pair(d: int) -> int:
@@ -111,8 +131,8 @@ def dx_ops_per_pair(d: int) -> int:
         e_l += s delta                              2d
         a_l += k p_j                                2d
 
-    with dx_l = -u e_l + c_l a_l per row.  The kernel forms
-    w = Gx_l + c_l delta per pair instead.
+    with dx_l = -u e_l + c_l a_l per row.  The kernel takes the table route
+    instead (``dx_table``, ``tensor_flops_per_pair``).
     """
     return 9 * d + 1
 
@@ -135,10 +155,44 @@ def dqdp_ops_per_pair(d: int) -> int:
         n_l += km                                   1
 
     with dq_l = mq_l (-u a_l - gc u n_l p_l), dp_l = mq_l (g_l - gc u n_l q_l)
-    per row.  The kernel forms p_l.e per pair and sums k Gx_i and km e
-    apart instead.
+    per row.  The kernel takes the table route instead (``dqdp_table``,
+    ``tensor_flops_per_pair``).
     """
     return 9 * d + 3
+
+
+def dx_table(d: int) -> list:
+    """The dx kernel's payload columns over the support (q centred on the
+    block of data rows, p), in the order of the JAX package's
+    ``_ext_bwd_dx_mm_kernel``: p_e | q_a p_e | q.p | q_a (q.p), 9 columns at
+    d = 2 and 16 at d = 3."""
+    names = [("p", e) for e in range(d)]
+    names += [("qp", a, e) for a in range(d) for e in range(d)]
+    names += [("qdp",)]
+    names += [("qqdp", a) for a in range(d)]
+    return names
+
+
+def dqdp_table(d: int) -> list:
+    """The dq/dp kernel's payload columns over the data (x centred on the
+    block of support rows, Gx = mx gx, the mask m = mx), in the order of
+    ``_ext_bwd_dqdp_mm_kernel``: Gx_f | x_a Gx_f | m | m x_f | m x_a x_b
+    (a <= b), 12 columns at d = 2 and 22 at d = 3."""
+    names = [("G", f) for f in range(d)]
+    names += [("xG", a, f) for a in range(d) for f in range(d)]
+    names += [("m",)]
+    names += [("mx", f) for f in range(d)]
+    names += [("mxx", a, b) for a in range(d) for b in range(a, d)]
+    return names
+
+
+def tensor_flops_per_pair(d: int, which: str) -> int:
+    """Tensor-core work per (data, support) pair of the table route of dx
+    (``which`` "dx") or dq/dp ("dqdp"): the table padded to n-tiles of 8
+    columns (16 at d = 2 and 3 for dx; 16 and 24 for dq/dp), three TF32
+    products of two FLOP each, as ``rhs_self.tensor_flops_per_pair``."""
+    ncols = len(dx_table(d) if which == "dx" else dqdp_table(d))
+    return 3 * 2 * 8 * -(-ncols // 8)
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +289,50 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.difficp_rhs_ext_fwd_eta.argtypes = [vp] * 7 + [ci] * 4 + [cf, ci, cf, ci, vp]
         lib.difficp_rhs_ext_fwd_eta.restype = ci
-        lib.difficp_rhs_ext_bwd_dx.argtypes = [vp] * 8 + [ci] * 4 + [cf, ci, vp]
+        lib.difficp_rhs_ext_bwd_dx.argtypes = [vp] * 8 + [ci, ci, vp] + [ci] * 4 + [
+            cf, ci, vp]
         lib.difficp_rhs_ext_bwd_dx.restype = ci
-        lib.difficp_rhs_ext_bwd_dqdp.argtypes = [vp] * 9 + [ci] * 5 + [cf, ci, vp]
+        lib.difficp_rhs_ext_bwd_dqdp.argtypes = [vp] * 8 + [ci, ci] + [vp] * 4 + [
+            ci] * 5 + [cf, ci, vp]
         lib.difficp_rhs_ext_bwd_dqdp.restype = ci
         _bound = True
     return lib
+
+
+def dx_block_rows(x) -> int:
+    """Slots of the data order a block of the dx kernel takes: 128 where
+    those blocks cover every SM of x's card once, else 64
+    (``rhs_self.block_rows`` up to DX_MAX_ROWS); it divides the runs of
+    ``rhs_self.row_order(x, ...)``, so no block straddles two."""
+    return rhs_self.block_rows(x, DX_MAX_ROWS)
+
+
+def data_order(x, mx, sigma):
+    """The dx kernel's data-row order: ``rhs_self.row_order`` of (x, mx)
+    with DATA_ORDER_PAD_BUDGET."""
+    return rhs_self.row_order(x, mx, sigma, DATA_ORDER_PAD_BUDGET)
+
+
+def dqdp_chunk_cols(n: int, row_blocks: int, sms: int) -> int:
+    """Columns a chunk of the dq/dp kernel's data axis takes, a multiple of
+    64: the n data columns of a frame cut into about DQDP_BLOCKS_PER_SM x
+    sms / row_blocks chunks (row_blocks over all frames), none shorter than
+    1,024 columns."""
+    chunks = max(1, min(-(-DQDP_BLOCKS_PER_SM * sms // max(1, row_blocks)), -(-n // 1024)))
+    per_chunk = -(-n // chunks)
+    return -(-per_chunk // 64) * 64
+
+
+def _scratch(device, n_part, n_ticket):
+    """The dq/dp kernel's scratch on ``device``: at least n_part floats of
+    partials and n_ticket zero tickets."""
+    part, ticket = _workspace.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=device)
+    _workspace[device] = (part, ticket)
+    return part, ticket
 
 
 def _check_pair(name, x, q):
@@ -298,42 +390,55 @@ def _check_bwd(name, x, mx, gx, q, p, mq, gc):
     return nb, n, m, d
 
 
-def rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, withlogdet):
+def rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, withlogdet, xorder=None):
     """dx of (vx, dcost) for cotangents gx and gc (one per frame).  CPU
-    tensors take the plain version; CUDA tensors launch the dx kernel."""
+    tensors take the plain version; CUDA tensors launch the dx table kernel
+    once, the data rows in ``xorder`` (``data_order``, computed when not
+    given) in blocks of ``dx_block_rows``."""
     if x.device.type == "cpu":
         return rhs_ext_bwd_dx_reference(x, mx, gx, q, p, mq, gc, sigma, withlogdet)
     nb, n, m, d = _check_bwd("rhs_ext_bwd_dx", x, mx, gx, q, p, mq, gc)
+    xorder = data_order(x, mx, sigma) if xorder is None else rhs_self._order_for(
+        x, mx, xorder, sigma)
     dx = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().difficp_rhs_ext_bwd_dx(
         x.data_ptr(), mx.data_ptr(), gx.data_ptr(), q.data_ptr(), p.data_ptr(),
-        mq.data_ptr(), gc.data_ptr(), dx.data_ptr(), nb, n, m, d,
-        1.0 / (sigma * sigma), int(bool(withlogdet)), stream)
+        mq.data_ptr(), gc.data_ptr(), xorder.data_ptr(), xorder.shape[-1],
+        dx_block_rows(x), dx.data_ptr(), nb, n, m, d, 1.0 / (sigma * sigma),
+        int(bool(withlogdet)), stream)
     _raise_on(err, "rhs_ext_bwd_dx")
     launches["rhs_ext_bwd_dx"] += 1
     return dx
 
 
-def rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, withlogdet):
+def rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, withlogdet, order=None):
     """(dq, dp) of (vx, dcost) for cotangents gx and gc.  CPU tensors take
-    the plain version; CUDA tensors launch the dq/dp kernel, whose per-chunk
-    partials are summed here in a fixed order."""
+    the plain version; CUDA tensors launch the dq/dp table kernel once, the
+    support's rows in ``order`` (``rhs_self.row_order``, computed when not
+    given), the data axis in chunks (``dqdp_chunk_cols``) whose partials the
+    kernel sums in a fixed order."""
     if x.device.type == "cpu":
         return rhs_ext_bwd_dqdp_reference(x, mx, gx, q, p, mq, gc, sigma, withlogdet)
     nb, n, m, d = _check_bwd("rhs_ext_bwd_dqdp", x, mx, gx, q, p, mq, gc)
-    n_chunks = -(-n // DQDP_CHUNK)
-    dq_part = torch.empty((nb, n_chunks, m, d), dtype=q.dtype, device=q.device)
-    dp_part = torch.empty_like(dq_part)
+    order = rhs_self._order_for(q, mq, order, sigma)
+    rows = rhs_self.block_rows(q)
+    row_blocks = -(-order.shape[-1] // rows)
+    cols = dqdp_chunk_cols(n, nb * row_blocks, rhs_self._sms(q))
+    chunks = -(-n // cols)
+    part, ticket = _scratch(x.device, nb * row_blocks * chunks * rows * 2 * d,
+                            nb * row_blocks)
+    dq = torch.empty_like(q)
+    dp = torch.empty_like(q)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().difficp_rhs_ext_bwd_dqdp(
         x.data_ptr(), mx.data_ptr(), gx.data_ptr(), q.data_ptr(), p.data_ptr(),
-        mq.data_ptr(), gc.data_ptr(), dq_part.data_ptr(), dp_part.data_ptr(),
-        nb, n, m, d, DQDP_CHUNK, 1.0 / (sigma * sigma), int(bool(withlogdet)),
-        stream)
+        mq.data_ptr(), gc.data_ptr(), order.data_ptr(), order.shape[-1], rows,
+        dq.data_ptr(), dp.data_ptr(), part.data_ptr(), ticket.data_ptr(), nb, n, m, d,
+        cols, 1.0 / (sigma * sigma), int(bool(withlogdet)), stream)
     _raise_on(err, "rhs_ext_bwd_dqdp")
     launches["rhs_ext_bwd_dqdp"] += 1
-    return dq_part.sum(1).reshape(q.shape), dp_part.sum(1).reshape(q.shape)
+    return dq, dp
 
 
 # ---------------------------------------------------------------------------
@@ -345,16 +450,18 @@ class RHSExt(torch.autograd.Function):
     ``make_rhs_ext``).  At eta = 0, forward: the self kernel on the support
     with logdet off, and the ext forward kernel; backward: the self backward
     kernel with a zero dcost cotangent for the support-support terms, and the
-    dx and dq/dp kernels for the cross terms, summed; the self kernels with
-    the support's rows in ``order`` (``rhs_self.row_order``, computed per
-    call when None).  At eta != 0 the routes of the module docstring, on
-    coordinates shifted by one centroid."""
+    dx and dq/dp kernels for the cross terms, summed; the self kernels and
+    the dq/dp kernel with the support's rows in ``order``, the dx kernel with
+    the data rows in ``xorder`` (``rhs_self.row_order`` of (q, mq) and
+    ``data_order`` of (x, mx), each computed per call when None).  At eta != 0 the routes of
+    the module docstring, on coordinates shifted by one centroid."""
 
     @staticmethod
-    def forward(ctx, q, p, x, mq, mx, sigma, withlogdet, eta=0.0, order=None):
+    def forward(ctx, q, p, x, mq, mx, sigma, withlogdet, eta=0.0, order=None, xorder=None):
         q, p, x, mq, mx = (t.contiguous() for t in (q, p, x, mq, mx))
         ctx.save_for_backward(q, p, x, mq, mx)
-        ctx.sigma, ctx.withlogdet, ctx.eta, ctx.order = sigma, withlogdet, eta, order
+        ctx.sigma, ctx.withlogdet, ctx.eta = sigma, withlogdet, eta
+        ctx.order, ctx.xorder = order, xorder
         if eta != 0.0:
             return _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta)
         v, w, _ = rhs_self.rhs_self_fwd(q, p, mq, sigma, False, order=order)
@@ -380,11 +487,11 @@ class RHSExt(torch.autograd.Function):
                                                    ctx.eta)
             dq2, dp2, dx = pair_poly.rhs_ext_bwd_poly(
                 qc, p, xc, mq, mx, gx, gc if wl else zero_c, sigma, ctx.eta)
-            return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None, None
+            return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None, None, None
         dq1, dp1 = rhs_self.rhs_self_bwd(q, p, mq, gv, gw, zero_c, sigma, False, ctx.order)
-        dx = rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, wl)
-        dq2, dp2 = rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, wl)
-        return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None, None
+        dx = rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, wl, ctx.xorder)
+        dq2, dp2 = rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, wl, ctx.order)
+        return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None, None, None
 
 
 def _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta):
@@ -405,12 +512,14 @@ def _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta):
 
 
 def lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q=None, mask_x=None, eta=0.0,
-                  order=None):
+                  order=None, xorder=None):
     """Kernel-route fused ext RHS: (vq, -Gq, dcost, vx) with autograd; at eta
-    = 0 the support's rows in ``order`` for the self kernels."""
+    = 0 the support's rows in ``order`` for the self and dq/dp kernels, the
+    data rows in ``xorder`` for the dx kernel."""
     mq = _ones_mask(q) if mask_q is None else mask_q
     mx = _ones_mask(x) if mask_x is None else mask_x
-    return RHSExt.apply(q, p, x, mq, mx, float(sigma), bool(withlogdet), float(eta), order)
+    return RHSExt.apply(q, p, x, mq, mx, float(sigma), bool(withlogdet), float(eta), order,
+                        xorder)
 
 
 class VField(torch.autograd.Function):

@@ -246,7 +246,7 @@ def block_rows(q, max_rows=256):
     return 64
 
 
-def row_order(q, m, sigma):
+def row_order(q, m, sigma, pad_budget=ORDER_PAD_BUDGET):
     """The eta = 0 kernels' row order, per frame: the rows sorted by Morton
     code (stable, so ties keep their index order, as jnp.argsort), then cut
     into runs wherever two consecutive (unmasked) points lie farther apart
@@ -255,7 +255,7 @@ def row_order(q, m, sigma):
     thin cloud, and a block of rows that straddles a jump has a centroid far
     from its rows, which the table's recombination amplifies as (R /
     sigma)^2; cut there, every block lies in one run.  tau is the smallest of
-    sigma (1, 2, 4, 8) whose padding stays within ORDER_PAD_BUDGET of the
+    sigma (1, 2, 4, 8) whose padding stays within pad_budget of the
     rows and adds no wave of blocks on the card, else no cut.  int32 (...,
     Mo), Mo >= M the longest frame's slots."""
     orders["row_order"] += 1
@@ -266,7 +266,7 @@ def row_order(q, m, sigma):
     # unpadded rows fill already
     sms, nb = _sms(q), qf.shape[0]
     waves = -(-nb * -(-mm // run) // sms)
-    cap = min(mm * (1 + ORDER_PAD_BUDGET), waves * sms // nb * run)
+    cap = min(mm * (1 + pad_budget), waves * sms // nb * run)
     idx = torch.argsort(morton_codes(qf, mf), dim=-1, stable=True)
     qs = torch.gather(qf, 1, idx[..., None].expand(-1, -1, d))
     # masked points sort last: they open no run

@@ -314,6 +314,96 @@ def test_ext_frames_are_independent(cuda):
             torch.testing.assert_close(got[k:k + 1], one, rtol=1e-6, atol=0.0)
 
 
+def _ext_spiral_inputs(b, n, d, support, seed, device, sigma=0.05):
+    """Ragged spiral frames (the grid paths' geometry, rows in random order)
+    of n data points, ~10% masked with a padded tail, with the grid support
+    at sigma (the grid paths' 0.05 by default) or a masked custom support of
+    500 points; random momenta and cotangents."""
+    from difficp_torch.examples.run_large import spiral_cloud
+    from difficp_torch.utils.point_sets import grid_support
+
+    rng = np.random.default_rng(seed)
+    x = np.stack([spiral_cloud(n, np.random.default_rng(seed + k), dim=d) for k in range(b)])
+    mx = (rng.uniform(size=(b, n)) > 0.1).astype(np.float64)
+    mx[:, -7:] = 0.0
+    if support == "grid":
+        qg = grid_support(x.reshape(-1, d), sigma)
+        q = np.broadcast_to(qg, (b, *qg.shape)).copy()
+        mq = np.ones(q.shape[:-1])
+    else:
+        q = rng.uniform(x.min((0, 1)), x.max((0, 1)), size=(b, 500, d))
+        mq = (rng.uniform(size=(b, 500)) > 0.2).astype(np.float64)
+    p = 0.05 * rng.normal(size=q.shape) * mq[..., None]
+    gx = rng.normal(size=x.shape)
+    gc = rng.normal(size=(b,))
+    return [torch.tensor(t, dtype=torch.float32, device=device)
+            for t in (x, mx, q, p, mq, gx, gc)]
+
+
+def _table_kernels_match_plain(cuda, d, support, shuffled, sig):
+    from difficp_torch.ops import rhs_ext as RE
+
+    x, mx, q, p, mq, gx, gc = _ext_spiral_inputs(2, 5003, d, support, seed=d, device=cuda,
+                                                 sigma=sig)
+    if shuffled:
+        g = torch.Generator().manual_seed(d)
+        px, pq = (torch.randperm(n, generator=g).to(cuda) for n in (x.shape[1], q.shape[1]))
+        x, mx, gx = (t[:, px].contiguous() for t in (x, mx, gx))
+        q, p, mq = (t[:, pq].contiguous() for t in (q, p, mq))
+    for wl in (True, False):
+        dx = RE.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sig, wl)
+        dq, dp = RE.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sig, wl)
+        torch.cuda.synchronize()
+        x8, mx8, q8, p8, mq8, gx8, gc8 = (t.double() for t in (x, mx, q, p, mq, gx, gc))
+        rdx = RE.rhs_ext_bwd_dx_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl)
+        rdq, rdp = RE.rhs_ext_bwd_dqdp_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl)
+        _close(dx, rdx, TOL_BWD)
+        _close(dq, rdq, TOL_BWD)
+        _close(dp, rdp, TOL_BWD)
+        assert bool((dx[mx == 0] == 0).all()) and bool((dq[mq == 0] == 0).all())
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("support", ["grid", "custom"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_ext_table_kernels_match_plain(cuda, d, support, shuffled):
+    """The dx and dq/dp table kernels against their float64 plain versions
+    on two ragged, masked spiral frames of 5,003 points (dq/dp in several
+    chunks) at sigma = 0.05, grid and masked custom support, logdet on and
+    off; with the data and support rows also shuffled (the outputs permuted
+    back; the kernels take the rows in their orders either way).  TOL_BWD
+    relative to the largest output; masked rows exactly 0."""
+    _table_kernels_match_plain(cuda, d, support, shuffled, 0.05)
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("support", ["grid", "custom"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_ext_table_kernels_match_plain_at_half_sigma(cuda, d, support, shuffled):
+    """As test_ext_table_kernels_match_plain at sigma = 0.025 (a cloud twice
+    as wide against the Gaussian; at d = 3 a sparse one, which needs the
+    data order's cuts: rhs_ext.DATA_ORDER_PAD_BUDGET)."""
+    _table_kernels_match_plain(cuda, d, support, shuffled, 0.025)
+
+
+def test_ext_table_kernels_are_bit_for_bit_reproducible(cuda):
+    """Two calls of each VJP kernel on the same inputs give the same bits
+    (dq/dp's chunk partials are summed in chunk order, no float atomics),
+    each call counts one launch, and dq/dp leaves its tickets at 0."""
+    from difficp_torch.ops import rhs_ext as RE
+
+    x, mx, q, p, mq, gx, gc = _ext_spiral_inputs(3, 20000, 2, "grid", seed=5, device=cuda)
+    for key in RE.launches:
+        RE.launches[key] = 0
+    runs = [(RE.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, 0.05, True),
+             *RE.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, 0.05, True)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert RE.launches["rhs_ext_bwd_dx"] == 2 and RE.launches["rhs_ext_bwd_dqdp"] == 2
+    assert not bool(RE._workspace[x.device][1].any())
+
+
 @pytest.mark.parametrize("exclude_self", [False, True])
 def test_kmin2_matches_plain(cuda, exclude_self):
     """kmin2 against its plain version on duplicated points (ties), a masked
@@ -382,6 +472,16 @@ def test_ext_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         RE.rhs_ext_bwd_dqdp(x, mx, gx.transpose(-1, -2).contiguous().transpose(-1, -2),
                             q, p, mq, gc, SIG, True)
+    order = RS.row_order(q, mq, SIG)
+    with pytest.raises(ValueError):  # the support's order as int64
+        RE.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, SIG, True, order.long())
+    with pytest.raises(ValueError):  # an order shorter than the support
+        RE.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, SIG, True, order[..., :8].contiguous())
+    xorder = RS.row_order(x, mx, SIG)
+    with pytest.raises(ValueError):  # the data rows' order as int64
+        RE.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, SIG, True, xorder.long())
+    with pytest.raises(ValueError):  # an order shorter than the data
+        RE.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, SIG, True, xorder[..., :8].contiguous())
     with pytest.raises(ValueError):
         K2.kmin2(x, q, mq[..., :-1])
     with pytest.raises(ValueError):

@@ -283,3 +283,284 @@ def test_kernel_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         RE.rhs_ext_bwd_dx(xt.to("meta"), mxt, gxt, qt, pt, mqt, torch.tensor(gc),
                           SIG, True)
+
+
+# ---------------------------------------------------------------------------
+# the VJP's table kernels (csrc/rhs_ext.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# float32 sums in another order than the plain version, relative to the
+# largest |plain| output (chip_smoke.py's bound for the backward kernels)
+TOL_BWD = 1e-4
+GRID_SIGMA = 0.05
+
+
+def _spiral_frame(n, d, support, seed, sigma=GRID_SIGMA):
+    """One frame of the grid paths: a spiral cloud of n points (in the random
+    order spiral_cloud draws them), ~10% masked with a padded tail, and its
+    grid support at sigma (the grid paths' 0.05 by default) or a masked
+    custom support of 500 points in its box; momenta and cotangents."""
+    from difficp_torch.examples.run_large import spiral_cloud
+    from difficp_torch.utils.point_sets import grid_support
+
+    rng = np.random.default_rng(seed)
+    x = spiral_cloud(n, rng, dim=d)
+    mx = (rng.uniform(size=n) > 0.1).astype(np.float32)
+    mx[-7:] = 0.0
+    if support == "grid":
+        q = grid_support(x, sigma)
+        mq = np.ones(q.shape[0], np.float32)
+    else:
+        lo, hi = x.min(0), x.max(0)
+        q = (lo + (hi - lo) * rng.uniform(size=(500, d))).astype(np.float32)
+        mq = (rng.uniform(size=500) > 0.2).astype(np.float32)
+    p = (0.05 * rng.normal(size=q.shape)).astype(np.float32) * mq[:, None]
+    gx = rng.normal(size=x.shape).astype(np.float32)
+    gc = np.float32(rng.normal())
+    return _t(x, mx, gx, q, p, mq) + [float(gc)]
+
+
+def _rel(x, ref):
+    return float((x.double() - ref).abs().max() / ref.abs().max())
+
+
+def _plain64(x, mx, gx, q, p, mq, gc, sigma, wl):
+    f64 = [t.double() for t in (x, mx, gx, q, p, mq)]
+    gc8 = torch.tensor(gc, dtype=torch.float64)
+    return (RE.rhs_ext_bwd_dx_reference(*f64, gc8, sigma, wl),
+            *RE.rhs_ext_bwd_dqdp_reference(*f64, gc8, sigma, wl))
+
+
+def _kernel_layout(x, mx, q, mq, sigma):
+    """What the kernels take at these shapes: dx's data rows in
+    data_order of (x, mx) in blocks of dx_block_rows, the support's
+    rows in rhs_self.row_order of (q, mq) in blocks of rhs_self.block_rows,
+    the dq/dp chunks (dqdp_chunk_cols on an H100's 132 SMs); tiles of 64
+    columns."""
+    from difficp_torch.ops import rhs_self as RS
+
+    order = RS.row_order(q, mq, sigma)
+    rows = RS.block_rows(q)
+    cols = RE.dqdp_chunk_cols(x.shape[0], -(-order.shape[0] // rows), 132)
+    return dict(dx=dict(order=RE.data_order(x, mx, sigma), rows=RE.dx_block_rows(x)),
+                dqdp=dict(order=order, rows=rows, chunk=cols))
+
+
+def _schemes_meet_the_tolerance(d, support, sigma):
+    from tf32_emulation import ext_table_scheme
+
+    n = 4096 if d == 2 else 2048
+    if d == 3 and support == "grid" and sigma < GRID_SIGMA:
+        n = 1024  # its grid support has ~20,000 points at 2,048
+    x, mx, gx, q, p, mq, gc = _spiral_frame(n, d, support, seed=d, sigma=sigma)
+    lay = _kernel_layout(x, mx, q, mq, sigma)
+    for wl in (True, False):
+        rdx, rdq, rdp = _plain64(x, mx, gx, q, p, mq, gc, sigma, wl)
+        args = (x, mx, gx, q, p, mq, gc, sigma, wl)
+        (dx,) = ext_table_scheme(*args, "dx", **lay["dx"])
+        dq, dp = ext_table_scheme(*args, "dqdp", **lay["dqdp"])
+        assert _rel(dx, rdx) <= TOL_BWD
+        assert max(_rel(dq, rdq), _rel(dp, rdp)) <= TOL_BWD
+        assert bool((dx[mx == 0] == 0).all()) and bool((dq[mq == 0] == 0).all())
+
+
+@pytest.mark.parametrize("support", ["grid", "custom"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_ext_table_schemes_meet_the_tolerance(d, support):
+    """The dx and dq/dp table kernels' float32 arithmetic, emulated
+    (tests/tf32_emulation: each block's table centred on its rows' masked
+    centroid, TF32 splits as tf32_rna, tiles summed in truncating
+    accumulators, dq/dp's chunk partials summed in chunk order), on a spiral
+    frame of 4,096 points (2,048 at d = 3) at the grid paths' sigma = 0.05,
+    with its grid support and with a masked custom support, logdet on and
+    off: dx, dq and dp within TOL_BWD of the float64 plain versions.  Both
+    take their rows in a spatial order, as the kernels do."""
+    _schemes_meet_the_tolerance(d, support, GRID_SIGMA)
+
+
+@pytest.mark.parametrize("support", ["grid", "custom"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_ext_table_schemes_meet_the_tolerance_at_half_sigma(d, support):
+    """As test_ext_table_schemes_meet_the_tolerance at sigma = 0.025: the
+    cloud twice as wide against the Gaussian, where the recombination's
+    amplification of rounding is four times larger (1,024 points at d = 3
+    with the grid support, whose support has ~20,000 points at 2,048)."""
+    _schemes_meet_the_tolerance(d, support, GRID_SIGMA / 2)
+
+
+def test_ext_table_scheme_needs_three_products():
+    """The negative control: the same emulated scheme with one TF32 product
+    (k_hi T_hi alone, no split of k and the table) puts dx above TOL_BWD, and
+    dq/dp too, where the three products keep them within (test above)."""
+    from tf32_emulation import ext_table_scheme
+
+    x, mx, gx, q, p, mq, gc = _spiral_frame(4096, 2, "grid", seed=2)
+    lay = _kernel_layout(x, mx, q, mq, GRID_SIGMA)
+    rdx, rdq, _ = _plain64(x, mx, gx, q, p, mq, gc, GRID_SIGMA, True)
+    args = (x, mx, gx, q, p, mq, gc, GRID_SIGMA, True)
+    (dx,) = ext_table_scheme(*args, "dx", passes=1, **lay["dx"])
+    dq, _ = ext_table_scheme(*args, "dqdp", passes=1, **lay["dqdp"])
+    assert _rel(dx, rdx) > TOL_BWD and _rel(dq, rdq) > TOL_BWD
+
+
+def test_dx_needs_the_data_order():
+    """The negative control of dx's data order: the same emulated scheme
+    with the data rows in their own (random) order, each block of 128 then
+    spanning the whole cloud, puts dx's error at least 5x above the order's
+    on a spiral frame of 16,384 points at sigma = 0.05 (the recombination
+    amplifies the sums' rounding by (R / sigma)^2 for a block of radius R)."""
+    from tf32_emulation import ext_table_scheme
+
+    x, mx, gx, q, p, mq, gc = _spiral_frame(16384, 2, "grid", seed=4)
+    lay = _kernel_layout(x, mx, q, mq, GRID_SIGMA)
+    rdx = _plain64(x, mx, gx, q, p, mq, gc, GRID_SIGMA, True)[0]
+    args = (x, mx, gx, q, p, mq, gc, GRID_SIGMA, True)
+    (dx,) = ext_table_scheme(*args, "dx", **lay["dx"])
+    (dx_natural,) = ext_table_scheme(*args, "dx", order=torch.arange(16384, dtype=torch.int32),
+                                     rows=128)
+    assert _rel(dx_natural, rdx) > 5 * _rel(dx, rdx)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_ext_tables_and_epilogues_match_pallas_mm_kernels(d, monkeypatch):
+    """The kernels' tables and epilogues, with exact float64 sums in place of
+    the tensor cores (tests/tf32_emulation ext_table_scheme, exact), against
+    _ext_bwd_pallas (TPU row #7: _ext_bwd_dx_mm_kernel and
+    _ext_bwd_dqdp_mm_kernel, interpret mode on the CPU, frame-centred as
+    make_rhs_ext hands it the coordinates) within 1e-5 of the largest output;
+    and within 1e-9 of the float64 plain versions.  The Pallas kernels run
+    their payload products in the package's full-float32 mode ("highest"),
+    at bench.py's sigma = 0.2 with the grid support at that sigma: there
+    their own float32 error stays under 8e-7, where the default "split3" (a
+    bf16 emulation of the TPU's matrix unit) floors at ~1e-5 on dx.  A spiral
+    of 1,000 points, logdet on (gc != 0) and off."""
+    import difficp_tpu.ops.pallas_reductions as PR
+    from tf32_emulation import ext_table_scheme
+
+    monkeypatch.setattr(PR, "_MM_MODE", "highest")
+    sig = 0.2
+    x, mx, gx, q, p, mq, gc = _spiral_frame(1000, d, "grid", seed=10 + d, sigma=sig)
+    lay = _kernel_layout(x, mx, q, mq, sig)
+    for wl in (True, False):
+        rdx, rdq, rdp = _plain64(x, mx, gx, q, p, mq, gc, sig, wl)
+        args = (x, mx, gx, q, p, mq, gc, sig, wl)
+        (dx,) = ext_table_scheme(*args, "dx", exact=True, **lay["dx"])
+        dq, dp = ext_table_scheme(*args, "dqdp", exact=True, **lay["dqdp"])
+        qj, xj, mqj = jnp.asarray(q.numpy()), jnp.asarray(x.numpy()), jnp.asarray(mq.numpy())
+        c = PR._mm_center(qj, mqj)
+        jdq, jdp, jdx = PR._ext_bwd_pallas(qj - c, jnp.asarray(p.numpy()), xj - c, mqj,
+                                           jnp.asarray(mx.numpy()), jnp.asarray(gx.numpy()),
+                                           jnp.asarray(gc if wl else 0.0, jnp.float32), sig)
+        for got, jax_ref, ref in ((dx, jdx, rdx), (dq, jdq, rdq), (dp, jdp, rdp)):
+            _close(got, np.asarray(jax_ref), 1e-5)
+            assert _rel(got, ref) <= 1e-9
+
+
+def test_dqdp_chunks_fill_the_card():
+    """dq/dp's split of the data axis: at the grid main path's shape (10
+    frames of 65,536 points, 7 row blocks of 64 a frame) 31 chunks of 2,176
+    columns, 2,170 blocks, more than two waves of 132 SMs; chunks are whole
+    multiples of 64 columns, none shorter than 1,024 (one chunk below
+    that)."""
+    cols = RE.dqdp_chunk_cols(65536, 70, 132)
+    assert cols == 2176 and 70 * -(-65536 // cols) == 2170 >= 2 * 132
+    for n, blocks in ((5003, 2), (16381, 24), (1000, 6), (300, 1)):
+        c = RE.dqdp_chunk_cols(n, blocks, 132)
+        assert c % 64 == 0 and (c >= 1024 or c >= n) and -(-n // c) * c - n < c
+
+
+def test_support_order_is_a_permutation_with_masked_rows_last():
+    """The order dq/dp takes the support's rows in (rhs_self.row_order, as
+    RHSExt receives it): per frame of a masked custom support, every row once,
+    the masked rows after every unmasked one, -1 in the padding slots (the
+    kernel takes the slots past the last as padding too)."""
+    from difficp_torch.ops import rhs_self as RS
+
+    frames = [_spiral_frame(2000, 2, "custom", seed=s) for s in (1, 2, 3)]
+    q = torch.stack([f[3] for f in frames])
+    mq = torch.stack([f[5] for f in frames])
+    order = RS.row_order(q, mq, GRID_SIGMA)
+    assert order.dtype == torch.int32 and order.shape[-1] >= q.shape[1]
+    for k in range(3):
+        o = order[k]
+        rows = o[o >= 0].long()
+        np.testing.assert_array_equal(np.sort(rows.numpy()), np.arange(q.shape[1]))
+        on = (mq[k][rows] > 0).numpy()
+        assert not (np.diff(on.astype(int)) > 0).any()  # no unmasked row after a masked one
+        assert bool(((o >= 0) | (o == -1)).all())
+
+
+def test_data_order_is_a_permutation_with_masked_rows_last():
+    """The order dx takes the data rows in (data_order of (x, mx), as
+    RHSExt receives it): per masked frame every row once, the masked rows
+    after every unmasked one, -1 in the padding slots, at most
+    DATA_ORDER_PAD_BUDGET of the rows in padding, and dx_block_rows dividing
+    the order's runs (rhs_self.block_rows long)."""
+    from difficp_torch.ops import rhs_self as RS
+
+    frames = [_spiral_frame(3000, 2, "grid", seed=s) for s in (1, 2, 3)]
+    x = torch.stack([f[0] for f in frames])
+    mx = torch.stack([f[1] for f in frames])
+    order = RE.data_order(x, mx, GRID_SIGMA)
+    rows = RE.dx_block_rows(x)
+    assert order.dtype == torch.int32
+    assert x.shape[1] <= order.shape[-1] <= x.shape[1] * (1 + RE.DATA_ORDER_PAD_BUDGET)
+    assert RS.block_rows(x) % rows == 0
+    for k in range(3):
+        o = order[k]
+        kept = o[o >= 0].long()
+        np.testing.assert_array_equal(np.sort(kept.numpy()), np.arange(x.shape[1]))
+        on = (mx[k][kept] > 0).numpy()
+        assert not (np.diff(on.astype(int)) > 0).any()  # no unmasked row after a masked one
+        assert bool(((o >= 0) | (o == -1)).all())
+
+
+def test_ext_route_bound_counts():
+    """The table route's per-pair terms: three TF32 products of two FLOP on
+    the padded table (16 columns for dx at d = 2 and 3, 16 and 24 for dq/dp),
+    3d + 2 FP32 operations, one exponential; at the grid main path's 10 x
+    65,536 x 380 pairs (4.1875e12 exponentials a second, 495 TFLOP/s TF32,
+    67 TFLOP/s FP32) the MUFU bounds both at 0.0595 ms, the tensor cores
+    0.0483 and the FP32 pipe 0.0297."""
+    from difficp_torch.ops import ksum as KS
+
+    assert [RE.tensor_flops_per_pair(d, w) for d in (2, 3) for w in ("dx", "dqdp")] == [
+        96, 96, 96, 144]
+    assert (len(RE.dx_table(2)), len(RE.dx_table(3)), len(RE.dqdp_table(2)),
+            len(RE.dqdp_table(3))) == (9, 16, 12, 22)
+    pairs = 10 * 65536 * 380.0
+    terms = {"mufu": pairs / 4.1875e12,
+             "tensor": pairs * RE.tensor_flops_per_pair(2, "dqdp") / 495e12,
+             "fp32": pairs * KS.fp32_ops_per_pair(2) / 67e12}
+    assert max(terms, key=terms.get) == "mufu"
+    for key, want in (("mufu", 0.0595), ("tensor", 0.0483), ("fp32", 0.0297)):
+        assert abs(1e3 * terms[key] - want) < 1e-4
+
+
+def test_table_bound_is_the_lower_of_least_work_and_route():
+    """chip_smoke.py's bound of a table kernel is the lower of the
+    function's least work on the FP32 pipe and the table route's own: at
+    the grid main path's 10 x 65,536 x 380 pairs dx's least work (9d + 1
+    FP32 operations a pair) gives 0.0706 ms and dq/dp's (9d + 3) 0.0781 ms,
+    the route's MUFU term 0.0595 ms for both, which is their bound_ms; a
+    route slower than the least work (the self backward's tensor cores at
+    d = 2, over twice the pairs) leaves the least work's."""
+    import runpy
+    from pathlib import Path
+
+    from difficp_torch.ops import rhs_self as RS
+
+    cs = runpy.run_path(str(Path(__file__).resolve().parents[1] / "chip_smoke.py"),
+                        run_name="not_main")
+    pairs, nbytes = 10 * 65536 * 380.0, 4.0 * 10 * 65536 * 7
+    for which, ops, least_ms in (("dx", RE.dx_ops_per_pair(2), 0.0706),
+                                 ("dqdp", RE.dqdp_ops_per_pair(2), 0.0781)):
+        least = cs["bound"](pairs, ops, pairs, nbytes)
+        bd = cs["table_bound"](least, pairs, 2, RE.tensor_flops_per_pair(2, which))
+        assert abs(bd["bound_least_work_ms"] - least_ms) < 1e-4
+        assert bd["bound_route_by"] == "mufu" and bd["bound_by"] == "operations"
+        assert bd["bound_ms"] == bd["bound_route_ms"] and abs(bd["bound_ms"] - 0.0595) < 1e-4
+    upairs = 65536 * 65535 / 2.0
+    least = cs["bound"](upairs, RS.bwd_ops_per_unordered_pair(2), upairs, 4.0 * 65536 * 13)
+    bd = cs["table_bound"](least, 65536.0 ** 2, 2, RS.tensor_flops_per_pair(2, True))
+    assert bd["bound_route_ms"] > least["bound_ms"] == bd["bound_ms"]
