@@ -51,7 +51,10 @@ Phases, each printing JSON lines with its seconds:
                  within 1e-5, ext: bit for bit);
  12. timing eta  each of them at the shapes the two eta paths give it, first
                  held against its float64 plain version there, then timed
-                 beside its plain version and its bound;
+                 beside its plain version and its bound; then the direct
+                 forwards (the any-eta self forward, the ext forward) at
+                 d = 3 likewise; the direct forwards and the grid path's
+                 kernels are timed by their device time too (device_ms);
  13. grid eta path  the grid main path with gradcomponent_LDDMM (version
                  "logdet", eta = 1/500), from start momenta computed with the
                  kernel-sum's float64 plain version, so that the sequence it
@@ -155,6 +158,9 @@ ETA0_KERNELS = ("rhs_self_fwd", "rhs_self_bwd", "rhs_ext_fwd", "rhs_ext_bwd_dx",
                "rhs_ext_bwd_dqdp", "kmin2")
 # the ext backward's table kernels and their tables (ops/rhs_ext.py)
 EXT_BWD_TABLES = {"rhs_ext_bwd_dx": "dx", "rhs_ext_bwd_dqdp": "dqdp"}
+# the direct forward kernels (csrc/direct.cuh), timed also by their device
+# time (device_ms)
+DIRECT_KERNELS = ("rhs_ext_fwd", "rhs_ext_fwd_eta", "rhs_self_fwd_eta", "rhs_cross_fwd_eta")
 # The eta = 0 paths' free energies: *_DIRECT as this script printed them with
 # the direct (FP32-pipe) self kernels, *_BEFORE as it printed them first with
 # the table kernels on the tensor cores, which sum in another order; the grid
@@ -167,9 +173,13 @@ EXT_BWD_TABLES = {"rhs_ext_bwd_dx": "dx", "rhs_ext_bwd_dqdp": "dqdp"}
 # differ there (8.7e-3; tools/rhs_self_ab.py fe), so it measures the line
 # search, not the kernels.  The kernels along that path are held at its end
 # instead (hold_end_state).
+# The grid path also prints GRID_FE_DIRECT_FWD, the sequence it printed with
+# the ext forward of one thread a row (csrc/direct.cuh's kernel sums each row
+# in another order: 7.7e-4 from it over all four entries).
 GRID_FE_DIRECT = [22501056.0, -1347914.25, -1391784.75]
 GRID_FE_DIRECT_EXT_BWD = [22501056.0, -1347946.625, -1391633.875, -1413118.75]
-GRID_FE_BEFORE = [22501056.0, -1347924.625, -1392195.5, -1414159.75]
+GRID_FE_DIRECT_FWD = [22501056.0, -1347924.625, -1392195.5, -1414159.75]
+GRID_FE_BEFORE = [22501056.0, -1347923.375, -1393268.25, -1414657.25]
 DENSE_FE_DIRECT = [-134942.6875, -135171.546875]
 DENSE_FE_BEFORE = [-134947.359375, -135175.125]
 # dq of the eta = 0 backward at the dense main path's geometry (a spiral of
@@ -214,9 +224,17 @@ DENSE_ETA_FE_FP32_KSUM = [-16924.4140625] * 3 + [-16957.8828125] * 3
 # by the eta = 0 self forward (kred): with the table kernel their sequences
 # moved (first entries 2.8e-4 from the float64 kernel-sum's and 9.6e-5 from
 # the FP32-pipe kernel-sum's references) and were recorded again
-GRID_ETA_FE_BEFORE = [-1339679.0, -1442487.75, -1484406.875]
-DENSE_ETA_FE_BEFORE = ([-16926.025390625] + [-16926.04296875] * 2
-                       + [-16959.234375] * 3)
+# The any-eta self forward of csrc/direct.cuh sums each row in another order
+# than the kernel of one thread a row before it, whose sequences are kept as
+# *_DIRECT_FWD: the dense eta path moved 3.0e-4 (all six entries, held), the
+# grid eta path's first entry 2.0e-5 (held) and its second and third 1.7e-3
+# and 8.2e-3 (not held: within what the 1 + 2^-22 scaling above moves them)
+GRID_ETA_FE_DIRECT_FWD = [-1339679.0, -1442487.75, -1484406.875]
+DENSE_ETA_FE_DIRECT_FWD = ([-16926.025390625] + [-16926.04296875] * 2
+                           + [-16959.234375] * 3)
+GRID_ETA_FE_BEFORE = [-1339705.25, -1444913.875, -1496632.75]
+DENSE_ETA_FE_BEFORE = ([-16920.896484375, -16920.9453125, -16921.06640625]
+                       + [-16955.337890625] * 3)
 # the point-sharded two-set path (parallel/): run_large's problem, at world
 # size 1 on the card; each step em_iters EM steps and one L-BFGS pass, the
 # curvature memory carried
@@ -289,6 +307,58 @@ def ksum_ptxas(log):
             out[name][0] = int(m.group(1))
             name = None
     return out
+
+
+def direct_ptxas(log):
+    """{"SelfEta<d>" / "ExtFwd<d, eta>": [registers, spill-store bytes]} of
+    each instance of the direct forward kernel (csrc/direct.cuh), from
+    ptxas's report in the build log."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '.*direct_kernelINS_\d+(SelfEta|ExtFwd)"
+                      r"ILi(\d)E(?:Lb(\d)E)?", ln)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}" + (f", {bool(int(m.group(3)))}>" if m.group(3)
+                                                     else ">")
+            out[name] = [None, None]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            out[name][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name][0] = int(m.group(1))
+            name = None
+    return out
+
+
+def device_ms(fn, reps):
+    """Median device milliseconds of the one kernel each run of fn launches,
+    over the last ``reps`` of 3 reps runs in a torch.profiler trace: the
+    kernel's own time.  CUDA events around one call (cuda_ms) take the
+    host's time in the wrapper as well, since the card waits for the launch;
+    at a few microseconds of kernel that is most of what they read.  (The
+    trace may miss the first few kernels of a burst of short ones: hence
+    the runs ahead of those read.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3 * reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if len(spans) < reps:
+        raise RuntimeError(f"device_ms: {len(spans)} kernels traced over {3 * reps} calls")
+    return statistics.median((b - a) / 1e3 for a, b in spans[-reps:])
 
 
 def cuda_ms(fn, reps):
@@ -914,6 +984,7 @@ def phase_timing_ext(rs, re, k2):
             fn()
         torch.cuda.synchronize()
         ms = cuda_ms(fn, 15)
+        dev_ms = device_ms(fn, 15)
         plain()
         torch.cuda.synchronize()
         plain_ms = cuda_ms(plain, 3)
@@ -926,8 +997,9 @@ def phase_timing_ext(rs, re, k2):
         if name in EXT_BWD_TABLES:
             bd = table_bound(bd, npairs, d, re.tensor_flops_per_pair(d, EXT_BWD_TABLES[name]))
             bd["share_of_route_bound"] = bd["bound_route_ms"] / ms
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bd,
-                         share_of_bound=bd["bound_ms"] / ms, pairs=npairs,
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                         **bd, share_of_bound=bd["bound_ms"] / ms,
+                         device_share_of_bound=bd["bound_ms"] / dev_ms, pairs=npairs,
                          fp32_ops_per_pair=ops, bytes=nbytes,
                          frames=xs[0].shape[0] if name == "kmin2" else k, N=n, M=m,
                          gpair_per_s=npairs / (ms * 1e-3) / 1e9)
@@ -989,7 +1061,8 @@ def phase_grid_main_path(counters, orders):
     if tuple(x1.shape) != (k, n, 2) or not bool(torch.isfinite(x1).all()):
         fail("grid_main_path", "warped points have the wrong shape or are not finite")
     hold_fes("grid_main_path", fe_seq, {"direct": GRID_FE_DIRECT,
-                                        "direct_ext_bwd": GRID_FE_DIRECT_EXT_BWD[:3]},
+                                        "direct_ext_bwd": GRID_FE_DIRECT_EXT_BWD[:3],
+                                        "direct_fwd": GRID_FE_DIRECT_FWD[:3]},
              GRID_FE_BEFORE)
     hold_end_state("grid_main_end_state", psr, float64_table_kernels)
     return psr, flat
@@ -1486,6 +1559,7 @@ def phase_timing_eta(rs, re, ks, pp):
             fn()
         torch.cuda.synchronize()
         ms = cuda_ms(fn, 15)
+        dev_ms = device_ms(fn, 15)
         plain()
         torch.cuda.synchronize()
         plain_ms = cuda_ms(plain, 3)
@@ -1493,8 +1567,9 @@ def phase_timing_eta(rs, re, ks, pp):
         upairs = float((mm.sum(-1) * (mm.sum(-1) - 1) / 2).sum())
         nbytes = 4.0 * nb * mpts * ((2 * d + 1) + (2 * d + 1))
         bd = bound(upairs, rs.fwd_eta_ops_per_unordered_pair(d, wl), upairs, nbytes)
-        rec = dict(call=label, frames=nb, M=mpts, ms=ms, plain_ms=plain_ms, library_ms=None,
-                   **bd, share_of_bound=bd["bound_ms"] / ms)
+        rec = dict(call=label, frames=nb, M=mpts, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   library_ms=None, **bd, share_of_bound=bd["bound_ms"] / ms,
+                   device_share_of_bound=bd["bound_ms"] / dev_ms)
         out.setdefault("rhs_self_fwd_eta", []).append(rec)
         emit({"phase": "timing", "kernel": "rhs_self_fwd_eta", **rec})
     # the ETA ext forward: v_field of the grid eta path's set-up (the grid
@@ -1524,19 +1599,84 @@ def phase_timing_eta(rs, re, ks, pp):
         fn()
     torch.cuda.synchronize()
     ms = cuda_ms(fn, 15)
+    dev_ms = device_ms(fn, 15)
     plain()
     torch.cuda.synchronize()
     plain_ms = cuda_ms(plain, 3)
     pairs = float(k * m * n)
     nbytes = 4.0 * k * (m * (d + 1) + n * (2 * d + 1) + m * d)
     bd = bound(pairs, re.fwd_eta_ops_per_pair(d, False), pairs, nbytes)
-    out["rhs_ext_fwd_eta"] = [dict(call="v_field", frames=k, N=m, M=n, ms=ms,
+    out["rhs_ext_fwd_eta"] = [dict(call="v_field", frames=k, N=m, M=n, ms=ms, device_ms=dev_ms,
                                    plain_ms=plain_ms, library_ms=None, **bd,
-                                   share_of_bound=bd["bound_ms"] / ms)]
+                                   share_of_bound=bd["bound_ms"] / ms,
+                                   device_share_of_bound=bd["bound_ms"] / dev_ms)]
     emit({"phase": "timing", "kernel": "rhs_ext_fwd_eta", **out["rhs_ext_fwd_eta"][0]})
     out["ksum"] = shapes
     torch.cuda.empty_cache()
     emit({"phase": "timing_eta_done", "seconds": time.perf_counter() - t0})
+    return out, worst
+
+
+def phase_timing_direct_d3(rs, re):
+    """The direct forwards at d = 3, which no main path runs above the pair
+    limit: the any-eta self forward on one frame of 16,384 helix points
+    (sigma = 0.1, eta = 1/200, logdet on) and the ext forward at eta = 0 on
+    3 frames of 65,536 helix points against their grid support (sigma =
+    0.05, logdet on).  Each first held against its float64 plain version
+    (TOL_FWD; each frame's dcost against its terms' magnitudes), then timed
+    (cuda_ms and device_ms, median of 15) beside its plain version and its
+    bound (the function's least work)."""
+    import torch
+
+    t0 = time.perf_counter()
+    d = 3
+    q, p, m, *_ = make_inputs(16384, d, False, seed=7)
+    x, mx, qs, ps, mq, *_ = ext_inputs(3, 65536, d, False, "grid", seed=65539)
+    upairs = float((m.sum(-1) * (m.sum(-1) - 1) / 2).sum())
+    pairs = float((mx.sum(-1) * mq.sum(-1)).sum())
+    k, n, msup = x.shape[0], x.shape[1], qs.shape[1]
+    out, worst = {}, {}
+    for name, call, fn, plain, bd in (
+            ("rhs_self_fwd_eta", "self d = 3, 16,384^2",
+             lambda: rs.rhs_self_fwd(q, p, m, SIGMA, True, DENSE_ETA),
+             lambda dt: rs.rhs_self_fwd_reference(*(t.to(dt) for t in (q, p, m)), SIGMA, True,
+                                                  DENSE_ETA),
+             bound(upairs, rs.fwd_eta_ops_per_unordered_pair(d, True), upairs,
+                   4.0 * q.shape[1] * (2 * d + 1) * 2)),
+            ("rhs_ext_fwd", "ext d = 3, 3 x 65,536 x M",
+             lambda: re.rhs_ext_fwd(x, mx, qs, ps, mq, GRID_SIGMA, True),
+             lambda dt: re.rhs_ext_fwd_reference(*(t.to(dt) for t in (x, mx, qs, ps, mq)),
+                                                 GRID_SIGMA, True),
+             bound(pairs, re.fwd_ops_per_pair(d), pairs,
+                   4.0 * k * (n * (d + 1) + msup * (2 * d + 1) + n * (d + 1))))):
+        got = fn()
+        torch.cuda.synchronize()
+        ref = plain(torch.float64)
+        rel = max(rel_err(a, r) for a, r in zip(got[:-1], ref[:-1]))
+        dc_rel = float((got[-1].double().sum(-1) - ref[-1].sum(-1)).abs().max()
+                       / ref[-1].abs().sum(-1).max().clamp_min(1e-300))
+        ab = max(abs_err(a, r) for a, r in zip(got[:-1], ref[:-1]))
+        ok = max(rel, dc_rel) <= TOL_FWD
+        emit({"phase": "check_main_shape", "kernel": name, "call": call, "rel_err": rel,
+              "dcost_rel_err": dc_rel, "abs_err": ab, "tol": TOL_FWD, "ok": ok})
+        if not ok:
+            fail("check_main_shape", f"{name} disagrees with its plain version at {call}")
+        worst[name] = [max(rel, dc_rel), ab]
+        del got, ref
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 15)
+        dev_ms = device_ms(fn, 15)
+        plain(torch.float32)
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: plain(torch.float32), 3)
+        out[name] = dict(call=call, d=d, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=None, **bd, share_of_bound=bd["bound_ms"] / ms,
+                         device_share_of_bound=bd["bound_ms"] / dev_ms)
+        emit({"phase": "timing", "kernel": name, **out[name]})
+    torch.cuda.empty_cache()
+    emit({"phase": "timing_direct_d3_done", "seconds": time.perf_counter() - t0})
     return out, worst
 
 
@@ -1697,7 +1837,8 @@ def phase_grid_eta_path(counters, ks):
     if tuple(psr.x1.shape) != (k, n, 2) or not bool(torch.isfinite(psr.x1).all()):
         fail("grid_eta_path", "warped points have the wrong shape or are not finite")
     hold_fes("grid_eta_path", fe_seq, {"fp32_ksum": GRID_ETA_FE_FP32_KSUM,
-                                           "float64_ksum": GRID_ETA_FE_FLOAT64_KSUM},
+                                           "float64_ksum": GRID_ETA_FE_FLOAT64_KSUM,
+                                           "direct_fwd": GRID_ETA_FE_DIRECT_FWD[:1]},
                  GRID_ETA_FE_BEFORE)
     hold_end_state("grid_eta_end_state", psr, lambda: float64_ksum(ks))
     return psr, flat
@@ -1864,7 +2005,8 @@ def phase_dense_eta_path(counters, run_large):
     x1 = psr.get_warped_data_points()
     if x1.shape != (n_points, 2) or not bool(np.isfinite(x1).all()):
         fail("dense_eta_path", "warped points have the wrong shape or are not finite")
-    hold_fes("dense_eta_path", fes, {"fp32_ksum": DENSE_ETA_FE_FP32_KSUM},
+    hold_fes("dense_eta_path", fes, {"fp32_ksum": DENSE_ETA_FE_FP32_KSUM,
+                                     "direct_fwd": DENSE_ETA_FE_DIRECT_FWD},
                  DENSE_ETA_FE_BEFORE)
     return flat
 
@@ -2116,6 +2258,7 @@ def phase_timing_cross(rc, pp):
             fn()
         torch.cuda.synchronize()
         ms = cuda_ms(fn, 15)
+        dev_ms = device_ms(fn, 15) if name in DIRECT_KERNELS else None
         plain()
         torch.cuda.synchronize()
         plain_ms = cuda_ms(plain, 3)
@@ -2128,8 +2271,9 @@ def phase_timing_cross(rc, pp):
         bd = bound(pairs, ops, pairs, nbytes)
         if eta == 0.0:
             bd = table_bound(bd, pairs, d, rs.tensor_flops_per_pair(d, False))
-        out[name] = dict(M=n, N=n, d=d, ms=ms, plain_ms=plain_ms, library_ms=None, **bd,
-                         share_of_bound=bd["bound_ms"] / ms, pairs=pairs,
+        out[name] = dict(M=n, N=n, d=d, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=None, **bd, share_of_bound=bd["bound_ms"] / ms,
+                         device_share_of_bound=dev_ms and bd["bound_ms"] / dev_ms, pairs=pairs,
                          fp32_ops_per_pair=ops, gpair_per_s=pairs / (ms * 1e-3) / 1e9)
         emit({"phase": "timing", "kernel": name, **out[name]})
     torch.cuda.empty_cache()
@@ -2354,7 +2498,8 @@ def main():
     regs = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln]
     emit({"phase": "build", "seconds": _build.build_seconds,
           "one_call_seconds": one_call_build_seconds(_build), "ptxas": regs,
-          "ksum_ptxas": ksum_ptxas(_build.build_log)})
+          "ksum_ptxas": ksum_ptxas(_build.build_log),
+          "direct_ptxas": direct_ptxas(_build.build_log)})
 
     counters = {"rhs_self": rs.launches, "rhs_ext": re.launches, "kmin2": k2.launches,
                 "ksum": ks.launches, "rhs_cross": rc.launches}
@@ -2388,8 +2533,10 @@ def main():
     # the gradcomponent (eta != 0) slice
     worst.update(phase_check_eta(rs, re, ks))
     timing_eta, worst_eta = phase_timing_eta(rs, re, ks, pp)
-    for name, (rel, ab) in worst_eta.items():
+    timing_d3, worst_d3 = phase_timing_direct_d3(rs, re)
+    for name, (rel, ab) in [*worst_eta.items(), *worst_d3.items()]:
         worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
+    timing_eta["rhs_self_fwd_eta"].append(timing_d3["rhs_self_fwd_eta"])
     psr_eta, grid_eta_launches = phase_grid_eta_path(counters, ks)
     phase_dense_eta_start(rs, pp, ks)
     t0 = time.perf_counter()
@@ -2453,6 +2600,16 @@ def main():
                          shapes=[{key: r[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
                                                           "bound_by", *TABLE_BOUND_KEYS)}
                                  for r in (t, timing[f"{name}_grid"])])
+        if t.get("device_ms") is not None:
+            entry["device_ms"] = t["device_ms"]
+        if name in DIRECT_KERNELS:
+            # and the d = 3 shape
+            d3 = timing_d3[name]
+            entry.update(shapes=[dict(call="grid main 10 x 65,536 x M", ms=t["ms"],
+                                      device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                                      bound_ms=t["bound_ms"], bound_by=t["bound_by"]),
+                                 {key: d3[key] for key in ("call", "ms", "device_ms", "plain_ms",
+                                                           "bound_ms", "bound_by")}])
         kernels.append(entry)
     pk = "difficp_tpu/ops/pallas_ksum.py"
     eta_kernels = {
@@ -2465,7 +2622,8 @@ def main():
     for name, (source, rep, also) in eta_kernels.items():
         shapes = timing_eta[name]
         # the headline shape: the grid eta path's costliest call of the kernel
-        grid = [r for r in shapes if not r["call"].startswith(("dense", "ring"))]
+        grid = [r for r in shapes
+                if not r["call"].startswith(("dense", "ring")) and "d = 3" not in r["call"]]
         t = max(grid, key=lambda r: r["ms"])
         by_path = {"grid_eta_path": grid_eta_launches[name],
                    "dense_eta_path": dense_eta_launches[name]}
@@ -2479,8 +2637,9 @@ def main():
             "shape": t["call"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"),
-            "shapes": [{key: r[key] for key in ("call", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")}
+            **({"device_ms": t["device_ms"]} if name in DIRECT_KERNELS else {}),
+            "shapes": [{key: r.get(key) for key in ("call", "ms", "device_ms", "plain_ms",
+                                                    "bound_ms", "bound_by", "library_ms")}
                        for r in shapes]})
     for name, rep, also, path in (
             ("rhs_cross_fwd", f"{pr}:2218", [f"{pr}:677"], ring),
@@ -2494,6 +2653,7 @@ def main():
             "shape": f"{t['M']} x {t['N']}", "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            **({"device_ms": t["device_ms"]} if name in DIRECT_KERNELS else {}),
             **{key: t[key] for key in TABLE_BOUND_KEYS if key in t}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -27,15 +27,33 @@
 //   dx:       _ext_bwd_dx_mm_kernel   } both via _ext_bwd_pallas
 //   dq, dp:   _ext_bwd_dqdp_mm_kernel }
 //
-// The forward is a direct pair sum: one thread owns one data row in
-// registers; a block of 128 rows stages 128-column tiles of the support (q,
-// p, mq) in shared memory; all sums stay in registers.  K x ceil(N / 128)
-// blocks fill the card.  eta is a template switch: the ETA = false instance
-// is the eta = 0 kernel; the ETA = true instance adds three sums in the same
-// pass (sum k, sum k r2, sum k delta), combined per row at the end, so that
-// at eta = 0 it gives the ETA = false results bit for bit.  Per pair it takes
-// one exponential and 5 d + 1 FP32 operations of least work (7 d + 4 with
-// the gradcomponent terms; ops/rhs_ext.py).
+// The forward is a direct pair sum (ExtFwd below, on direct.cuh's
+// direct_kernel), one pair loop for both kinds: ETA = false is the eta = 0
+// kernel; ETA = true adds three sums in the same pass (sum k~, sum k~ r2,
+// sum k~ delta) and combines them per row at the end, so that at eta = 0 it
+// gives the ETA = false results bit for bit.
+//
+// What bounds the forward on an H100: operations.  Per pair one exponential
+// (MUFU, 16 a SM and clock) and 5 d + 1 FP32 operations of least work (7 d
+// + 4 with the gradcomponent terms; ops/rhs_ext.py fwd_ops_per_pair): the
+// MUFU's rate leaves 8 issue slots a pair, so each instruction of the pair
+// loop counts; and v_field's 10 frames of 380 rows against 65,536 columns
+// give too few blocks of rows to fill the card.
+//
+// What the design does about it:
+// - About 10 issue slots a pair at d = 2 for eta = 0: coordinates prescaled
+//   by s = sqrt(u log2(e) / 2), so k = ex2(-|delta'|^2), one
+//   ex2.approx.ftz and no multiply; the support's mask folded into its
+//   payload (p~ = mq p) in the record, so the eta = 0 record is q', p~ (one
+//   LDS.128 at d = 2) and the pair is 2 d subtractions and multiply-adds for
+//   the exponent, d for vx and d + 1 for dcost's p~.delta'; one record load
+//   for four rows.  The scale comes off per row (dcost times u / s).
+// - Every SM busy at every main-path shape: blocks of 4 warps over 128 data
+//   rows, the support axis cut into chunks where the rows alone would not
+//   give each SM a few blocks (v_field; ops/rhs_self.py direct_chunk_cols:
+//   one chunk at the grid main path's 10 x 65,536 rows, which fill the card).
+// - Per-tile partial sums; the prescaled coordinates round relative to |s x|
+//   (rhs_self.cu).
 //
 // The VJP kernels are, as those TPU kernels, a table kernel-sum followed by
 // a per-row epilogue:
@@ -109,130 +127,110 @@
 //   atomicAdd after a fence) sums the C partials in chunk order and writes
 //   (dq, dp), then sets its ticket back to 0.  No float atomics: the
 //   results are the same bit for bit from run to run, in one launch.
-// The main loop reaches about 40% of the MUFU's rate per SM (timestamps per
-// block on the card, PERF.md); where the rest goes was not measured (no
-// profiler of the SM's stalls on that machine).  Deeper A buffering with a
-// second set of accumulators across tiles made ptxas serialize the wgmmas
-// (C7511, C7514) and ran slower.
+// At the grid main path's shape a whole launch runs at about a quarter of
+// the MUFU's rate: 27% for dx and for dq/dp by device time in a profiler
+// trace (chip_smoke.py, PERF.md), 22-24% by CUDA events, which take the
+// wrapper's host time too; timestamps per block of a development build read
+// about a third for the main loop alone.  Where the rest goes was not
+// measured (no profiler of the SM's stalls on that machine).  Deeper A
+// buffering with a second set of accumulators across tiles made ptxas
+// serialize the wgmmas (C7511, C7514) and ran slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "direct.cuh"
 #include "tile.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
+// The forward's pair arithmetic: data rows x (the rows of DirectArgs: q = x,
+// m = mx) against the support (the columns: qc = q, pc = p, mc = mq).  Sums
+// a row, on prescaled coordinates (delta' = s delta, r2n = -s^2 r2, k~ = mq_j
+// k): V = sum k p~ (D), DC = sum k p~.delta'; with ETA K = sum k~, KR2 = sum
+// k~ r2n, KD = sum k~ delta' (D).
 template <int D, bool ETA>
-__global__ void __launch_bounds__(kThreads)
-rhs_ext_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mx,
-                   const float* __restrict__ q, const float* __restrict__ p,
-                   const float* __restrict__ mq, float* __restrict__ vx,
-                   float* __restrict__ dc, int N, int M, float u,
-                   int withlogdet, float eta) {
-  constexpr int NF = 2 * D + 1;  // record: q_j, p_j, mq_j
-  constexpr int NV = Record<NF>::kWords;
-  __shared__ float4 tile[kThreads * NV];
+struct ExtFwd {
+  static constexpr int kD = D, kRows = 4, kFields = 2 * D + (ETA ? 1 : 0);
+  static constexpr int kSums = ETA ? 2 * D + 3 : D + 1, kOut = D + 1;
+  static constexpr int kV = 0, kDC = D, kK = D + 1, kKR2 = D + 2, kKD = D + 3;
+  struct Consts {
+    Scale sc;
+  };
+  struct Row {
+    float x[D];  // s x_i
+  };
 
-  const size_t frame = blockIdx.y;
-  x += frame * N * D;
-  mx += frame * N;
-  vx += frame * N * D;
-  dc += frame * N;
-  q += frame * M * D;
-  p += frame * M * D;
-  mq += frame * M;
+  __device__ static Consts consts(const DirectArgs&, const Scale& sc) { return {sc}; }
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool row_ok = i < N;
-  float xi[D];
+  __device__ static void row(const Consts& c, const float* x, const float*, int i, Row& r) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) xi[d] = row_ok ? x[(size_t)i * D + d] : 0.f;
-  const float mi = row_ok ? mx[i] : 0.f;
-  const float c2 = -0.5f * u * kLog2e;
-
-  float av[D], adc = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) av[d] = 0.f;
-  // gradcomponent sums: k, k r2, k delta
-  float ek = 0.f, ekr2 = 0.f, ekd[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) ekd[d] = 0.f;
-
-  for (int base = 0; base < M; base += kThreads) {
-    const int j = base + threadIdx.x;
-    float rec[NF];
-    if (j < M) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        rec[d] = q[(size_t)j * D + d];
-        rec[D + d] = p[(size_t)j * D + d];
-      }
-      rec[2 * D] = mq[j];
-    } else {
-#pragma unroll
-      for (int e = 0; e < NF; ++e) rec[e] = 0.f;
-    }
-    store_record<NF>(&tile[threadIdx.x * NV], rec);
-    __syncthreads();
-
-    const int n = min(kThreads, M - base);
-    float tv[D], tdc = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) tv[d] = 0.f;
-    float tk = 0.f, tkr2 = 0.f, tkd[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) tkd[d] = 0.f;
-#pragma unroll 4
-    for (int jj = 0; jj < n; ++jj) {
-      float f[4 * NV];
-      load_record<NF>(&tile[jj * NV], f);
-      float dd[D];
-      float r2 = 0.f, pd = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dd[d] = xi[d] - f[d];
-        r2 = fmaf(dd[d], dd[d], r2);
-        pd = fmaf(f[D + d], dd[d], pd);
-      }
-      const float k = f[2 * D] * exp2f(c2 * r2);
-#pragma unroll
-      for (int d = 0; d < D; ++d) tv[d] = fmaf(k, f[D + d], tv[d]);
-      tdc = fmaf(k, pd, tdc);
-      if constexpr (ETA) {
-        tk += k;
-        tkr2 = fmaf(k, r2, tkr2);
-#pragma unroll
-        for (int d = 0; d < D; ++d) tkd[d] = fmaf(k, dd[d], tkd[d]);
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) av[d] += tv[d];
-    adc += tdc;
-    if constexpr (ETA) {
-      ek += tk;
-      ekr2 += tkr2;
-#pragma unroll
-      for (int d = 0; d < D; ++d) ekd[d] += tkd[d];
-    }
-    __syncthreads();
+    for (int d = 0; d < D; ++d) r.x[d] = i >= 0 ? c.sc.s * x[(size_t)i * D + d] : 0.f;
   }
 
-  if (row_ok) {
+  // the record: s q_j, mq_j p_j, and mq_j with ETA (zeros for j = -1)
+  __device__ static void column(const Consts& c, const float* q, const float* p,
+                                const float* mq, int j, float (&f)[kFields]) {
+    const float mj = j >= 0 ? mq[j] : 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      f[d] = j >= 0 ? c.sc.s * q[(size_t)j * D + d] : 0.f;
+      f[D + d] = j >= 0 ? mj * p[(size_t)j * D + d] : 0.f;
+    }
+    if constexpr (ETA) f[2 * D] = mj;
+  }
+
+  __device__ static void pair(const Consts&, const Row& r, const float (&f)[kFields],
+                              float (&S)[kSums]) {
+    float dd[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) dd[d] = r.x[d] - f[d];
+    float r2n = __fmul_rn(-dd[0], dd[0]);
+#pragma unroll
+    for (int d = 1; d < D; ++d) r2n = fmaf(-dd[d], dd[d], r2n);
+    const float k = ex2(r2n);
+    float pd = __fmul_rn(f[D], dd[0]);
+#pragma unroll
+    for (int d = 1; d < D; ++d) pd = fmaf(f[D + d], dd[d], pd);
+#pragma unroll
+    for (int d = 0; d < D; ++d) S[kV + d] = fmaf(k, f[D + d], S[kV + d]);
+    S[kDC] = fmaf(k, pd, S[kDC]);
     if constexpr (ETA) {
-      // the eta = 0 parts as the ETA = false branch forms them
-      const float me = mi * eta * u;
+      const float km = __fmul_rn(k, f[2 * D]);
+      S[kK] += km;
+      S[kKR2] = fmaf(km, r2n, S[kKR2]);
 #pragma unroll
-      for (int d = 0; d < D; ++d) vx[(size_t)i * D + d] = fmaf(me, ekd[d], mi * av[d]);
-      dc[i] = withlogdet ? fmaf(me, fmaf(u, ekr2, -D * ek), u * mi * adc) : 0.f;
-    } else {
-#pragma unroll
-      for (int d = 0; d < D; ++d) vx[(size_t)i * D + d] = mi * av[d];
-      dc[i] = withlogdet ? u * mi * adc : 0.f;
+      for (int d = 0; d < D; ++d) S[kKD + d] = fmaf(km, dd[d], S[kKD + d]);
     }
   }
-}
 
+  // vx = mx_i V (+ eta u mx_i KD / s); dc = u mx_i DC / s (+ eta u mx_i (-u
+  // KR2 / s^2 - D K)), 0 without logdet: the eta = 0 parts formed as the ETA
+  // = false kind forms them, the eta terms added by one fma each
+  __device__ static void epilogue(const Consts& c, const DirectArgs& a, const float*,
+                                  const float* mx, int i, const float (&S)[kSums],
+                                  float (&out)[kOut]) {
+    const float mi = mx[i];
+#pragma unroll
+    for (int d = 0; d < D; ++d) out[d] = __fmul_rn(mi, S[kV + d]);
+    out[D] = a.withlogdet ? __fmul_rn(__fmul_rn(c.sc.us, mi), S[kDC]) : 0.f;
+    if constexpr (ETA) {
+      const float me = mi * (a.eta * a.u);
+      const float mv = me / c.sc.s;
+#pragma unroll
+      for (int d = 0; d < D; ++d) out[d] = fmaf(mv, S[kKD + d], out[d]);
+      if (a.withlogdet) out[D] = fmaf(me, fmaf(-c.sc.us2, S[kKR2], -D * S[kK]), out[D]);
+    }
+  }
+
+  __device__ static void store(const DirectArgs& a, size_t frame, int i, const float (&o)[kOut]) {
+    const size_t at = frame * a.M + i;
+#pragma unroll
+    for (int d = 0; d < D; ++d) a.o0[at * D + d] = o[d];
+    a.o1[at] = o[D];
+  }
+};
 
 // ---------------------------------------------------------------------------
 // the VJP: table kernel-sums on the tensor cores and their epilogues
@@ -770,38 +768,43 @@ extern "C" {
 // x: (B, N, D), mx: (B, N); q, p: (B, M, D), mq: (B, M), all float32.
 // Writes vx (B, N, D) and dc (B, N), the per-row partials of the divergence
 // cost; the gradcomponent terms of eta when use_eta is nonzero (the ETA
-// instance; use_eta = 0 runs the eta = 0 kernel).  Returns cudaGetLastError()
-// after the launch.
+// kind, at any eta, 0 included; use_eta = 0 runs the eta = 0 kind).  rows:
+// the block's 128 data rows; the support cut into C = ceil(M / L) chunks of
+// L columns (a multiple of 32); with C > 1 part holds B ceil(N / 128) C 128
+// (D + 1) floats of scratch and ticket B ceil(N / 128) int32, all 0 at the
+// call and left 0 (part and ticket may be null with one chunk).  Returns
+// cudaGetLastError() after the launch.
 int difficp_rhs_ext_fwd_eta(const void* x, const void* mx, const void* q,
                             const void* p, const void* mq, void* vx, void* dc,
-                            int B, int N, int M, int D, float u, int withlogdet,
-                            float eta, int use_eta, void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* mxf = static_cast<const float*>(mx);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* pf = static_cast<const float*>(p);
-  const auto* mqf = static_cast<const float*>(mq);
-  auto* vf = static_cast<float*>(vx);
-  auto* df = static_cast<float*>(dc);
-  if (D == 2 && use_eta) {
-    rhs_ext_fwd_kernel<2, true><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf,
-                                                          df, N, M, u, withlogdet, eta);
-  } else if (D == 2) {
-    rhs_ext_fwd_kernel<2, false><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf,
-                                                           df, N, M, u, withlogdet, 0.f);
-  } else if (D == 3 && use_eta) {
-    rhs_ext_fwd_kernel<3, true><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf,
-                                                          df, N, M, u, withlogdet, eta);
-  } else if (D == 3) {
-    rhs_ext_fwd_kernel<3, false><<<grid, kThreads, 0, s>>>(xf, mxf, qf, pf, mqf, vf,
-                                                           df, N, M, u, withlogdet, 0.f);
-  } else {
+                            void* part, void* ticket, int rows, int L, int B, int N,
+                            int M, int D, float u, int withlogdet, float eta,
+                            int use_eta, void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || B > 65535 || (D != 2 && D != 3))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const auto* xf = static_cast<const float*>(x);
+  const DirectArgs a{xf,
+                     xf,
+                     static_cast<const float*>(mx),
+                     static_cast<const float*>(q),
+                     static_cast<const float*>(p),
+                     static_cast<const float*>(mq),
+                     static_cast<float*>(vx),
+                     static_cast<float*>(dc),
+                     nullptr,
+                     static_cast<float*>(part),
+                     static_cast<int*>(ticket),
+                     N,
+                     M,
+                     L,
+                     u,
+                     use_eta ? eta : 0.f,
+                     withlogdet};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 2)
+    return use_eta ? launch_direct<ExtFwd<2, true>>(a, B, rows, s)
+                   : launch_direct<ExtFwd<2, false>>(a, B, rows, s);
+  return use_eta ? launch_direct<ExtFwd<3, true>>(a, B, rows, s)
+                 : launch_direct<ExtFwd<3, false>>(a, B, rows, s);
 }
 
 // gx: (B, N, D) cotangent of vx; gc: (B,) cotangent of each frame's dcost, on

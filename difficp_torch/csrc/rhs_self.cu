@@ -103,170 +103,164 @@
 //   kShortJ): a long tile costs fewer drains and sums, a short one truncates
 //   less where a row's neighbours fall in few tiles.
 //
-// The ETA instance of the direct forward (rhs_fwd_kernel<D, true>) is the
-// any-eta kernel: one thread owns one row and keeps it in registers; a block
-// of 128 rows stages 128-column tiles of the j side in shared memory as float4
-// records and every thread reads the same record (a broadcast); sums are taken
-// per tile and then added to the running total.  It adds five sums (sum k,
-// sum k d, sum k r2, sum k r2 d, sum k (d.c) d) to the eta = 0 ones and
-// combines them per row at the end: 24 D + 4 FP32 operations per unordered
-// pair beside the eta = 0 terms in the function's least work
-// (ops/rhs_self.py, fwd_eta_ops_per_unordered_pair), about 7 D + 3 per ordered
-// pair in the kernel, and one exponential.  Only its ETA = true instance is
-// built: eta = 0 takes the table kernels at every shape.
+// The any-eta forward (rows against columns: SelfEta below, on direct.cuh's
+// direct_kernel) replaces the streaming _rhs_self_kernel (via
+// _rhs_self_fwd_pallas, and between two sets via _rhs_cross_fwd_stream).  It
+// stays a direct pair sum: at eta != 0 a table form needs monomials of degree
+// 3 in the columns' coordinates, whose cancellation in float32 is the fault
+// ROADMAP.md section 3 logs for the generated forward.
+//
+// What bounds it on an H100: operations.  The function's least work is 24 D
+// + 7 FP32 operations and one exponential per unordered pair
+// (ops/rhs_self.py fwd_eta_ops_per_unordered_pair); the kernel takes each
+// ordered pair apart, one ex2 and 9 D + 6 FP32 instructions each, so the FP32
+// pipe's issue slots set its pace, not the MUFU; and the main paths' row
+// counts are small (8,192, and the grid eta path's 10 x 380): blocks of rows
+// alone would leave most SMs idle.
+//
+// What the design does about it:
+// - Every SM busy at every main-path shape: blocks of 4 warps over 64 rows
+//   (2 a thread), the column axis cut into chunks on a second grid axis where
+//   the row blocks alone would not give each SM a few blocks
+//   (ops/rhs_self.py direct_chunk_cols), the chunks' partials summed in chunk
+//   order after an integer ticket (direct.cuh).
+// - Few issue slots a pair.  Coordinates prescaled by s = sqrt(u log2(e) /
+//   2), so k = ex2(-|d'|^2) with no multiply, one ex2.approx.ftz a pair; the
+//   column mask folded into the record's payload (p~ = m p) for the sums of
+//   p, one multiply km = k m for the others; one record load for two rows.
+//   Five running sums a row beside v (3 D + 2 in all, where the header's
+//   terms take 5 D + 3): with c = p_i - p_j, w's three vector sums, sum k~
+//   (p_i.p_j) d, sum k~ (d.c) d and sum k~ r2 d, are one sum, sum_j t_ij d',
+//   with
+//     t = k p~.(alpha p_i - beta d') + km (beta p_i.d' + gamma r2'),
+//   alpha = u / s, beta = eta u^2 / s^2 and gamma = -eta^2 u^3 / s^3
+//   constants of the launch; dcost's sum k~ (p_i.d) is p_i.(sum k~ d), a sum
+//   the eta terms take anyway.  The scale comes off per row in the epilogue.
+// - Each tile of 32 columns is summed in its own registers and then added to
+//   the warp's totals.  The prescaled coordinates round relative to |s q|,
+//   not to |d|: a pair's exponent moves by up to about 2^-23 |s q| |d'|, a
+//   relative error of the sums of a few 1e-7 at the main paths' |s q| < 20.
+// The ETA kind is the only one: eta = 0 takes the table kernels at every
+// shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "direct.cuh"
 #include "tile.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-template <int D, bool ETA>
-__global__ void __launch_bounds__(kThreads)
-rhs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
-               const float* __restrict__ m, const float* __restrict__ qc,
-               const float* __restrict__ pc, const float* __restrict__ mc,
-               float* __restrict__ v, float* __restrict__ w, float* __restrict__ dc,
-               int M, int N, float u, int withlogdet, float eta) {
-  constexpr int NF = 2 * D + 1;  // record: q_j, p_j, m_j
-  constexpr int NV = Record<NF>::kWords;
-  __shared__ float4 tile[kThreads * NV];
+// The any-eta forward's pair arithmetic (rows q, p, m against columns qc,
+// pc, mc; the header's forward with its gradcomponent terms).  Sums a row,
+// on prescaled coordinates (d' = s d, r2' = s^2 r2, r2n = -r2', k~ = m_j k):
+// V = sum k p~ (D), T = sum t d' (D, t above), K = sum k~, KD = sum k~ d'
+// (D), KR2 = sum k~ r2n.
+template <int D>
+struct SelfEta {
+  static constexpr int kD = D, kRows = 2, kFields = 2 * D + 1, kSums = 3 * D + 2;
+  static constexpr int kOut = 2 * D + 1;
+  static constexpr int kV = 0, kT = D, kK = 2 * D, kKD = 2 * D + 1, kKR2 = 3 * D + 1;
+  struct Consts {
+    Scale sc;
+    float alpha, beta, gamma;
+  };
+  struct Row {
+    float x[D], ap[D], bp[D];  // s q_i, alpha p_i, beta p_i
+  };
 
-  const size_t frame = blockIdx.y;
-  q += frame * M * D;
-  p += frame * M * D;
-  m += frame * M;
-  qc += frame * N * D;
-  pc += frame * N * D;
-  mc += frame * N;
-  v += frame * M * D;
-  w += frame * M * D;
-  dc += frame * M;
-
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool row_ok = i < M;
-  float qi[D], pi[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qi[d] = row_ok ? q[(size_t)i * D + d] : 0.f;
-    pi[d] = row_ok ? p[(size_t)i * D + d] : 0.f;
+  __device__ static Consts consts(const DirectArgs& a, const Scale& sc) {
+    const float beta = a.eta * a.u * sc.us2;
+    return {sc, sc.us, beta, -beta * a.eta * a.u / sc.s};
   }
-  const float mi = row_ok ? m[i] : 0.f;
-  const float c2 = -0.5f * u * kLog2e;
 
-  float av[D], aw[D], adc = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) av[d] = aw[d] = 0.f;
-  // gradcomponent sums: k, k r2, k d, k r2 d, k (d.c) d
-  float ek = 0.f, ekr2 = 0.f, ekd[D], ekr2d[D], ekdc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) ekd[d] = ekr2d[d] = ekdc[d] = 0.f;
-
-  for (int base = 0; base < N; base += kThreads) {
-    const int j = base + threadIdx.x;
-    float rec[NF];
-    if (j < N) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        rec[d] = qc[(size_t)j * D + d];
-        rec[D + d] = pc[(size_t)j * D + d];
-      }
-      rec[2 * D] = mc[j];
-    } else {
-#pragma unroll
-      for (int e = 0; e < NF; ++e) rec[e] = 0.f;  // m_j = 0: no contribution
-    }
-    store_record<NF>(&tile[threadIdx.x * NV], rec);
-    __syncthreads();
-
-    float tv[D], tw[D], tdc = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) tv[d] = tw[d] = 0.f;
-    float tk = 0.f, tkr2 = 0.f, tkd[D], tkr2d[D], tkdc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) tkd[d] = tkr2d[d] = tkdc[d] = 0.f;
-#pragma unroll 4
-    for (int jj = 0; jj < kThreads; ++jj) {
-      float f[4 * NV];
-      load_record<NF>(&tile[jj * NV], f);
-      float dd[D];
-      float r2 = 0.f, pp = 0.f, pd = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dd[d] = qi[d] - f[d];
-        r2 = fmaf(dd[d], dd[d], r2);
-        pp = fmaf(pi[d], f[D + d], pp);
-        pd = fmaf(pi[d], dd[d], pd);
-      }
-      const float k = f[2 * D] * exp2f(c2 * r2);
-      const float kpp = k * pp;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        tv[d] = fmaf(k, f[D + d], tv[d]);
-        tw[d] = fmaf(kpp, dd[d], tw[d]);
-      }
-      tdc = fmaf(k, pd, tdc);
-      if constexpr (ETA) {
-        float dcv = 0.f;  // d.c = d.p_i - d.p_j
-#pragma unroll
-        for (int d = 0; d < D; ++d) dcv = fmaf(dd[d], pi[d] - f[D + d], dcv);
-        const float kr2 = k * r2;
-        const float kdc = k * dcv;
-        tk += k;
-        tkr2 += kr2;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          tkd[d] = fmaf(k, dd[d], tkd[d]);
-          tkr2d[d] = fmaf(kr2, dd[d], tkr2d[d]);
-          tkdc[d] = fmaf(kdc, dd[d], tkdc[d]);
-        }
-      }
-    }
+  __device__ static void row(const Consts& c, const float* q, const float* p, int i, Row& r) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      av[d] += tv[d];
-      aw[d] += tw[d];
+      const float qi = i >= 0 ? q[(size_t)i * D + d] : 0.f;
+      const float pi = i >= 0 ? p[(size_t)i * D + d] : 0.f;
+      r.x[d] = c.sc.s * qi;
+      r.ap[d] = c.alpha * pi;
+      r.bp[d] = c.beta * pi;
     }
-    adc += tdc;
-    if constexpr (ETA) {
-      ek += tk;
-      ekr2 += tkr2;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        ekd[d] += tkd[d];
-        ekr2d[d] += tkr2d[d];
-        ekdc[d] += tkdc[d];
-      }
-    }
-    __syncthreads();
   }
 
-  if (row_ok) {
-    if constexpr (ETA) {
-      // sum_j k c_j = p_i sum k - sum k p_j;  sum k (u r2 - (D + 2)) d
-      const float eu = eta * u;
+  // the record: s qc_j, mc_j pc_j, mc_j (zeros for j = -1)
+  __device__ static void column(const Consts& c, const float* qc, const float* pc,
+                                const float* mc, int j, float (&f)[kFields]) {
+    const float mj = j >= 0 ? mc[j] : 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float lap = fmaf(u, ekr2d[d], -(D + 2) * ekd[d]);
-        const float kc = fmaf(pi[d], ek, -av[d]);
-        const float extra = eu * (fmaf(u, ekdc[d], -kc) - eta * u * lap);
-        // the eta = 0 parts as the ETA = false branch forms them
-        v[(size_t)i * D + d] = fmaf(mi * eu, ekd[d], mi * av[d]);
-        w[(size_t)i * D + d] = fmaf(mi, extra, u * mi * aw[d]);
-      }
-      dc[i] = withlogdet ? fmaf(mi * eu, fmaf(u, ekr2, -D * ek), -u * mi * adc) : 0.f;
-    } else {
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        v[(size_t)i * D + d] = mi * av[d];
-        w[(size_t)i * D + d] = u * mi * aw[d];
-      }
-      dc[i] = withlogdet ? -u * mi * adc : 0.f;
+    for (int d = 0; d < D; ++d) {
+      f[d] = j >= 0 ? c.sc.s * qc[(size_t)j * D + d] : 0.f;
+      f[D + d] = j >= 0 ? mj * pc[(size_t)j * D + d] : 0.f;
     }
+    f[2 * D] = mj;
   }
-}
+
+  __device__ static void pair(const Consts& c, const Row& r, const float (&f)[kFields],
+                              float (&S)[kSums]) {
+    float dd[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) dd[d] = r.x[d] - f[d];
+    float r2n = __fmul_rn(-dd[0], dd[0]);
+#pragma unroll
+    for (int d = 1; d < D; ++d) r2n = fmaf(-dd[d], dd[d], r2n);
+    const float k = ex2(r2n);
+    const float km = __fmul_rn(k, f[2 * D]);
+    // t = k p~.(alpha p_i - beta d') + km (beta p_i.d' + gamma r2')
+    float g = __fmul_rn(f[D], fmaf(-c.beta, dd[0], r.ap[0]));
+    float b = __fmul_rn(dd[0], r.bp[0]);
+#pragma unroll
+    for (int d = 1; d < D; ++d) {
+      g = fmaf(f[D + d], fmaf(-c.beta, dd[d], r.ap[d]), g);
+      b = fmaf(dd[d], r.bp[d], b);
+    }
+    const float t = fmaf(k, g, __fmul_rn(km, fmaf(-c.gamma, r2n, b)));
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      S[kV + d] = fmaf(k, f[D + d], S[kV + d]);
+      S[kT + d] = fmaf(t, dd[d], S[kT + d]);
+      S[kKD + d] = fmaf(km, dd[d], S[kKD + d]);
+    }
+    S[kK] += km;
+    S[kKR2] = fmaf(km, r2n, S[kKR2]);
+  }
+
+  // v = m_i (V + eta u KD / s)
+  // w = m_i (T - eta u (p_i K - V) + eta^2 u^2 (D + 2) KD / s)
+  // dc = m_i (-u p_i.KD / s + eta u (-u KR2 / s^2 - D K))  (0 without logdet)
+  __device__ static void epilogue(const Consts& c, const DirectArgs& a, const float* p,
+                                  const float* m, int i, const float (&S)[kSums],
+                                  float (&out)[kOut]) {
+    const float mi = m[i];
+    const float eu = a.eta * a.u;
+    const float cv = eu / c.sc.s;
+    const float cw = eu * cv * (D + 2);
+    float pkd = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float pi = p[(size_t)i * D + d];
+      const float kc = fmaf(pi, S[kK], -S[kV + d]);  // sum k~ c
+      out[d] = mi * fmaf(cv, S[kKD + d], S[kV + d]);
+      out[D + d] = mi * fmaf(cw, S[kKD + d], fmaf(-eu, kc, S[kT + d]));
+      pkd = fmaf(pi, S[kKD + d], pkd);
+    }
+    out[2 * D] = a.withlogdet
+                     ? mi * fmaf(eu, fmaf(-c.sc.us2, S[kKR2], -D * S[kK]), -c.sc.us * pkd)
+                     : 0.f;
+  }
+
+  __device__ static void store(const DirectArgs& a, size_t frame, int i, const float (&o)[kOut]) {
+    const size_t at = (frame * a.M + i) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      a.o0[at + d] = o[d];
+      a.o1[at + d] = o[D + d];
+    }
+    a.o2[frame * a.M + i] = o[2 * D];
+  }
+};
 
 // ---------------------------------------------------------------------------
 // eta = 0: the table kernel-sum on the tensor cores and its epilogues
@@ -821,8 +815,8 @@ int launch_rows(const TabArgs& args, int B, int rows, cudaStream_t s) {
 
 int launch_fwd(const void* q, const void* p, const void* m, const void* qc,
                const void* pc, const void* mc, const void* order, int Mo, int rows, void* v,
-               void* w, void* dc, int B, int M, int N, int D, float u, int withlogdet,
-               float eta, int use_eta, void* stream) {
+               void* w, void* dc, void* part, void* ticket, int L, int B, int M, int N,
+               int D, float u, int withlogdet, float eta, int use_eta, void* stream) {
   if (B <= 0 || M <= 0 || N <= 0 || B > 65535 || (D != 2 && D != 3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -836,14 +830,10 @@ int launch_fwd(const void* q, const void* p, const void* m, const void* qc,
   auto* wf = static_cast<float*>(w);
   auto* df = static_cast<float*>(dc);
   if (use_eta) {
-    const dim3 grid((M + kThreads - 1) / kThreads, B);
-    if (D == 2)
-      rhs_fwd_kernel<2, true><<<grid, kThreads, 0, s>>>(qf, pf, mf, qcf, pcf, mcf, vf, wf,
-                                                        df, M, N, u, withlogdet, eta);
-    else
-      rhs_fwd_kernel<3, true><<<grid, kThreads, 0, s>>>(qf, pf, mf, qcf, pcf, mcf, vf, wf,
-                                                        df, M, N, u, withlogdet, eta);
-    return (int)cudaGetLastError();
+    const DirectArgs a{qf, pf, mf, qcf, pcf, mcf, vf, wf, df, static_cast<float*>(part),
+                       static_cast<int*>(ticket), M, N, L, u, eta, withlogdet};
+    return D == 2 ? launch_direct<SelfEta<2>>(a, B, rows, s)
+                  : launch_direct<SelfEta<3>>(a, B, rows, s);
   }
   if (order == nullptr || Mo < M) return (int)cudaErrorInvalidValue;
   const TabArgs args{qf,      pf,      mf,      qcf, pcf, mcf, nullptr, nullptr,
@@ -857,31 +847,35 @@ int launch_fwd(const void* q, const void* p, const void* m, const void* qc,
 
 extern "C" {
 
-// q, p: (B, M, D) float32; m: (B, M); order: (B, Mo) int32, each frame's rows
-// in spatial order, each row once, -1 in padding slots, taken in blocks of
-// `rows` slots (64, 128 or 256; order and rows read only by the eta = 0
-// kernel); v, w: (B, M, D); dc: (B, M) per-row partials of the
-// divergence cost; the gradcomponent terms of eta when use_eta is nonzero
-// (the ETA instance of the direct kernel, at any eta, 0 included; use_eta =
-// 0 runs the eta = 0 table kernel).  The rows are their own columns.
-// Returns cudaGetLastError() after launch.
+// q, p: (B, M, D) float32; m: (B, M); v, w: (B, M, D); dc: (B, M) per-row
+// partials of the divergence cost.  use_eta = 0 runs the eta = 0 table
+// kernel: order (B, Mo) int32, each frame's rows in spatial order, each row
+// once, -1 in padding slots, taken in blocks of `rows` slots (64, 128 or
+// 256).  use_eta != 0 runs the any-eta kernel (at any eta, 0 included), the
+// gradcomponent terms of eta with it: `rows` is its block's 64 rows, the
+// columns are cut into C = ceil(N / L) chunks of L columns (a multiple of
+// 32), and with C > 1 part holds B ceil(M / 64) C 64 (2 D + 1) floats of
+// scratch and ticket B ceil(M / 64) int32, all 0 at the call and left 0
+// (order, part and ticket may be null where not read).  The rows are their
+// own columns.  Returns cudaGetLastError() after launch.
 int difficp_rhs_self_fwd_eta(const void* q, const void* p, const void* m, const void* order,
-                             int Mo, int rows, void* v, void* w, void* dc, int B, int M, int D,
-                             float u, int withlogdet, float eta, int use_eta, void* stream) {
-  return launch_fwd(q, p, m, q, p, m, order, Mo, rows, v, w, dc, B, M, M, D, u, withlogdet,
-                    eta, use_eta, stream);
+                             int Mo, int rows, void* v, void* w, void* dc, void* part,
+                             void* ticket, int L, int B, int M, int D, float u, int withlogdet,
+                             float eta, int use_eta, void* stream) {
+  return launch_fwd(q, p, m, q, p, m, order, Mo, rows, v, w, dc, part, ticket, L, B, M, M, D,
+                    u, withlogdet, eta, use_eta, stream);
 }
 
-// The rows (qr, pr, mr: (B, M, D), (B, M); order (B, Mo) and rows as above)
-// against the columns (qc, pc, mc: (B, N, D), (B, N)); outputs as
+// The rows (qr, pr, mr: (B, M, D), (B, M); order, rows, part, ticket and L as
+// above) against the columns (qc, pc, mc: (B, N, D), (B, N)); outputs as
 // difficp_rhs_self_fwd_eta's, one per row.
 int difficp_rhs_cross_fwd(const void* qr, const void* pr, const void* mr,
                           const void* qc, const void* pc, const void* mc, const void* order,
-                          int Mo, int rows, void* v, void* w, void* dc, int B, int M, int N,
-                          int D, float u, int withlogdet, float eta, int use_eta,
-                          void* stream) {
-  return launch_fwd(qr, pr, mr, qc, pc, mc, order, Mo, rows, v, w, dc, B, M, N, D, u,
-                    withlogdet, eta, use_eta, stream);
+                          int Mo, int rows, void* v, void* w, void* dc, void* part,
+                          void* ticket, int L, int B, int M, int N, int D, float u,
+                          int withlogdet, float eta, int use_eta, void* stream) {
+  return launch_fwd(qr, pr, mr, qc, pc, mc, order, Mo, rows, v, w, dc, part, ticket, L, B, M,
+                    N, D, u, withlogdet, eta, use_eta, stream);
 }
 
 // a, b: cotangents of v and w, (B, M, D); gc: (B,) cotangent of each frame's

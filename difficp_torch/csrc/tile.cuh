@@ -1,7 +1,7 @@
-// Shared pieces of the pair-sum kernels: the block width, log2(e) for exp2f
-// of a prescaled argument, and the float4 records in which a block stages one
-// tile of the column side in shared memory (every thread then reads the same
-// record: a broadcast).
+// Shared pieces of the pair-sum kernels: log2(e) for the exponentials of a
+// prescaled argument, and kmin2.cu's block width and the float4 records in
+// which its block stages one tile of the column side in shared memory (every
+// thread then reads the same record: a broadcast).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -45,8 +45,8 @@ import ctypes
 import torch
 
 from difficp_torch.ops import _build, ksum, pair_poly, rhs_ext
-from difficp_torch.ops.rhs_self import (_check, _frames, _order_for, _raise_on, block_rows,
-                                        fwd_reference)
+from difficp_torch.ops.rhs_self import (DIRECT_ROWS, _check, _frames, _order_for, _raise_on,
+                                        block_rows, direct_plan, fwd_reference)
 
 # kernel launches since the last reset (reset by assigning 0); the any-eta
 # instance counts apart
@@ -105,7 +105,7 @@ def _lib():
     lib = _build.library()
     if not _bound:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.difficp_rhs_cross_fwd.argtypes = [vp] * 7 + [ci, ci] + [vp] * 3 + [ci] * 4 + [
+        lib.difficp_rhs_cross_fwd.argtypes = [vp] * 7 + [ci, ci] + [vp] * 5 + [ci] * 5 + [
             cf, ci, cf, ci, vp]
         lib.difficp_rhs_cross_fwd.restype = ci
         _bound = True
@@ -138,7 +138,12 @@ def launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, use_eta, order=No
                            ("mr", mr, qr.shape[:-1]), ("qc", qc, qc.shape),
                            ("pc", pc, qc.shape), ("mc", mc, qc.shape[:-1])):
         _check(name, t, shape, qr.device)
-    order = None if use_eta else _order_for(qr, mr, order, sigma)
+    if use_eta:
+        order, rows = None, DIRECT_ROWS
+        cols, part, ticket = direct_plan(qr, nb, m, n, rows, 2 * d + 1)
+    else:
+        order, rows = _order_for(qr, mr, order, sigma), block_rows(qr)
+        cols, part, ticket = 0, None, None
     v = torch.empty_like(qr)
     w = torch.empty_like(qr)
     dc = torch.empty_like(mr)
@@ -146,8 +151,8 @@ def launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, use_eta, order=No
     err = _lib().difficp_rhs_cross_fwd(
         qr.data_ptr(), pr.data_ptr(), mr.data_ptr(), qc.data_ptr(), pc.data_ptr(),
         mc.data_ptr(), None if order is None else order.data_ptr(),
-        0 if order is None else order.shape[-1], block_rows(qr), v.data_ptr(), w.data_ptr(),
-        dc.data_ptr(), nb, m, n, d,
+        0 if order is None else order.shape[-1], rows, v.data_ptr(), w.data_ptr(),
+        dc.data_ptr(), part, ticket, cols, nb, m, n, d,
         1.0 / (sigma * sigma), int(bool(withlogdet)), float(eta), int(bool(use_eta)),
         stream)
     name = "rhs_cross_fwd_eta" if use_eta else "rhs_cross_fwd"

@@ -16,7 +16,10 @@ support point).  They replace the TPU kernels of
 ``difficp_tpu/ops/pallas_reductions.py``: ``_vx_mm_kernel`` (via
 ``_vx_fwd_pallas``) and ``_ext_bwd_dx_mm_kernel`` +
 ``_ext_bwd_dqdp_mm_kernel`` (via ``_ext_bwd_pallas``).  The forward is a
-direct pair sum; the two VJP kernels are, as those TPU kernels, a table
+direct pair sum (``csrc/direct.cuh``), blocks of FWD_ROWS data rows against
+the support, the support axis cut into chunks where the rows alone would
+leave SMs idle (``rhs_self.direct_chunk_cols``; v_field's 380 rows against
+65,536 points); the two VJP kernels are, as those TPU kernels, a table
 kernel-sum on the tensor cores (3xTF32 wgmma) and a per-row epilogue, the
 tables (``dx_table``, ``dqdp_table``) centred on each block of rows, the
 rows taken in a spatial order (``rhs_self.row_order``): the dx kernel the
@@ -51,7 +54,9 @@ import ctypes
 import torch
 
 from difficp_torch.ops import _build, rhs_self
-from difficp_torch.ops.rhs_self import _check, _chunk_rows, _frames, _ones_mask, _raise_on
+# _workspace: the scratch dq/dp shares with the direct forwards, named here too
+from difficp_torch.ops.rhs_self import (_check, _chunk_rows, _frames, _ones_mask,  # noqa: F401
+                                        _raise_on, _scratch, _workspace, direct_plan)
 
 # kernel launches since the last reset (reset by assigning 0)
 launches = {"rhs_ext_fwd": 0, "rhs_ext_bwd_dx": 0, "rhs_ext_bwd_dqdp": 0,
@@ -71,11 +76,11 @@ DX_MAX_ROWS = 128
 # spans up to 20 sigma (2 frames of 5,003 points at d = 3, sigma = 0.025)
 DATA_ORDER_PAD_BUDGET = 1 / 8
 
+# data rows a block of the forward kernel takes (4 a thread: csrc/rhs_ext.cu
+# ExtFwd)
+FWD_ROWS = 128
+
 _bound = False
-# the dq/dp kernel's scratch per device: the chunk partials and the row
-# blocks' tickets (int32, zero, and left zero by every launch), grown as
-# needed; launches on one stream at a time share it
-_workspace = {}
 
 
 def fwd_ops_per_pair(d: int) -> int:
@@ -287,7 +292,7 @@ def _lib():
     lib = _build.library()
     if not _bound:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.difficp_rhs_ext_fwd_eta.argtypes = [vp] * 7 + [ci] * 4 + [cf, ci, cf, ci, vp]
+        lib.difficp_rhs_ext_fwd_eta.argtypes = [vp] * 9 + [ci] * 6 + [cf, ci, cf, ci, vp]
         lib.difficp_rhs_ext_fwd_eta.restype = ci
         lib.difficp_rhs_ext_bwd_dx.argtypes = [vp] * 8 + [ci, ci, vp] + [ci] * 4 + [
             cf, ci, vp]
@@ -323,18 +328,6 @@ def dqdp_chunk_cols(n: int, row_blocks: int, sms: int) -> int:
     return -(-per_chunk // 64) * 64
 
 
-def _scratch(device, n_part, n_ticket):
-    """The dq/dp kernel's scratch on ``device``: at least n_part floats of
-    partials and n_ticket zero tickets."""
-    part, ticket = _workspace.get(device, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=device)
-    if ticket is None or ticket.numel() < n_ticket:
-        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=device)
-    _workspace[device] = (part, ticket)
-    return part, ticket
-
-
 def _check_pair(name, x, q):
     """(frames, N, M, D) of a cross op; x and q must agree in frames and D."""
     if x.device.type != "cuda":
@@ -365,13 +358,14 @@ def launch_fwd(x, mx, q, p, mq, sigma, withlogdet, eta, use_eta):
     for name, t in (("q", q), ("p", p)):
         _check(name, t, q.shape, x.device)
     _check("mq", mq, q.shape[:-1], x.device)
+    cols, part, ticket = direct_plan(x, nb, n, m, FWD_ROWS, d + 1)
     vx = torch.empty_like(x)
     dc = torch.empty_like(mx)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().difficp_rhs_ext_fwd_eta(
         x.data_ptr(), mx.data_ptr(), q.data_ptr(), p.data_ptr(), mq.data_ptr(),
-        vx.data_ptr(), dc.data_ptr(), nb, n, m, d, 1.0 / (sigma * sigma),
-        int(bool(withlogdet)), float(eta), int(bool(use_eta)), stream)
+        vx.data_ptr(), dc.data_ptr(), part, ticket, FWD_ROWS, cols, nb, n, m, d,
+        1.0 / (sigma * sigma), int(bool(withlogdet)), float(eta), int(bool(use_eta)), stream)
     name = "rhs_ext_fwd_eta" if use_eta else "rhs_ext_fwd"
     _raise_on(err, name)
     launches[name] += 1

@@ -12,8 +12,11 @@ and with the gradcomponent field (eta != 0) the terms of ``csrc/rhs_self.cu``'s
 header besides.  Kernels in ``csrc/rhs_self.cu`` compute it on the card: at
 eta = 0 ``rhs_self_fwd`` (v, w and per-row dcost partials) and
 ``rhs_self_bwd`` (the VJP, dq and dp), each a table kernel-sum on the tensor
-cores (3xTF32 wgmma) and a per-row epilogue; at eta != 0 the forward's ETA
-instance, a direct pair sum.  They replace the TPU kernels of
+cores (3xTF32 wgmma) and a per-row epilogue; at eta != 0 the any-eta
+forward, a direct pair sum (``csrc/direct.cuh``: blocks of DIRECT_ROWS rows,
+the column axis cut into chunks where the rows alone would leave SMs idle,
+``direct_chunk_cols``, the chunks' partials summed in the launch in chunk
+order).  They replace the TPU kernels of
 ``difficp_tpu/ops/pallas_reductions.py`` (forward: ``_rhs_self_sym_mm_kernel``,
 ``_rhs_self_sym_pair_kernel`` mode="fwd", ``_rhs_self_mm_kernel``, and at any
 eta ``_rhs_self_kernel``; backward: ``_rhs_self_bwd_mm_kernel``,
@@ -78,7 +81,21 @@ _DEFAULT_SMS = 132
 # pallas_reductions._POLY_FWD_MIN_M)
 _POLY_FWD_MIN_M = 32768
 
+# the any-eta forward (csrc/direct.cuh): warps a block (kDirectWarps), rows a
+# block of it (2 a thread: SelfEta), and the blocks an SM holds at least
+# (kDirectMinBlocks), one wave of which the split of the column axis fills
+# (direct_chunk_cols)
+DIRECT_WARPS = 4
+DIRECT_ROWS = 64
+DIRECT_BLOCKS_PER_SM = 4
+
 _bound = False
+# the scratch of the kernels that cut their column axis into chunks (the
+# direct forwards here, in rhs_cross.py and rhs_ext.py, and rhs_ext.py's
+# dq/dp) per device: the chunk partials and the row blocks' tickets (int32,
+# zero, and left zero by every launch), grown as needed; launches on one
+# stream at a time share it
+_workspace = {}
 
 
 def fwd_ops_per_unordered_pair(d: int) -> int:
@@ -226,9 +243,55 @@ def morton_codes(q, m):
     return torch.where(m > 0, code, 1 << (MORTON_BITS * d))
 
 
+@functools.lru_cache(maxsize=None)
+def _device_sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _sms(q):
-    return (torch.cuda.get_device_properties(q.device).multi_processor_count
-            if q.device.type == "cuda" else _DEFAULT_SMS)
+    return _device_sms(q.device) if q.device.type == "cuda" else _DEFAULT_SMS
+
+
+def direct_chunk_cols(n: int, row_blocks: int, sms: int) -> int:
+    """Columns a chunk of a direct forward kernel's column axis takes
+    (csrc/direct.cuh), a multiple of the 32-column tile: the n columns of a
+    frame cut into the most chunks whose blocks (row_blocks over all frames
+    each) still run in one wave of DIRECT_BLOCKS_PER_SM blocks an SM, each
+    chunk at least DIRECT_WARPS tiles (one a warp).  A second, part-filled
+    wave would double the launch's time for a fraction more blocks.  Where
+    the row blocks fill a wave already, one chunk: the split adds no
+    block."""
+    tiles = -(-n // 32)
+    chunks = max(1, min(DIRECT_BLOCKS_PER_SM * sms // max(1, row_blocks),
+                        tiles // DIRECT_WARPS))
+    return -(-tiles // chunks) * 32
+
+
+def _scratch(device, n_part, n_ticket):
+    """The chunked kernels' scratch on ``device``: at least n_part floats of
+    partials and n_ticket zero tickets."""
+    part, ticket = _workspace.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=device)
+    _workspace[device] = (part, ticket)
+    return part, ticket
+
+
+def direct_plan(t, frames, m, n, rows, n_out):
+    """(L, part, ticket) of one launch of a direct forward kernel on t's
+    device over ``frames`` frames of m rows against n columns, ``rows`` rows
+    a block and ``n_out`` outputs a row: the columns a chunk
+    (direct_chunk_cols) and, with more than one chunk, the data pointers of
+    the scratch (else None)."""
+    row_blocks = frames * -(-m // rows)
+    cols = direct_chunk_cols(n, row_blocks, _sms(t))
+    chunks = -(-n // cols)
+    if chunks == 1:
+        return cols, None, None
+    part, ticket = _scratch(t.device, row_blocks * chunks * rows * n_out, row_blocks)
+    return cols, part.data_ptr(), ticket.data_ptr()
 
 
 def block_rows(q, max_rows=256):
@@ -379,8 +442,8 @@ def _lib():
     lib = _build.library()
     if not _bound:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.difficp_rhs_self_fwd_eta.argtypes = [vp] * 4 + [ci, ci] + [vp] * 3 + [
-            ci, ci, ci, cf, ci, cf, ci, vp]
+        lib.difficp_rhs_self_fwd_eta.argtypes = [vp] * 4 + [ci, ci] + [vp] * 5 + [
+            ci, ci, ci, ci, cf, ci, cf, ci, vp]
         lib.difficp_rhs_self_fwd_eta.restype = ci
         lib.difficp_rhs_self_bwd.argtypes = [vp] * 7 + [ci, ci] + [vp] * 2 + [
             ci, ci, ci, cf, ci, vp]
@@ -447,15 +510,20 @@ def launch_fwd(q, p, m, sigma, withlogdet, eta, use_eta, order=None):
     _check("q", q, q.shape, q.device)
     _check("p", p, q.shape, q.device)
     _check("m", m, q.shape[:-1], q.device)
-    order = None if use_eta else _order_for(q, m, order, sigma)
+    if use_eta:
+        order, rows = None, DIRECT_ROWS
+        cols, part, ticket = direct_plan(q, nb, mm, mm, rows, 2 * d + 1)
+    else:
+        order, rows = _order_for(q, m, order, sigma), block_rows(q)
+        cols, part, ticket = 0, None, None
     v = torch.empty_like(q)
     w = torch.empty_like(q)
     dc = torch.empty_like(m)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().difficp_rhs_self_fwd_eta(
         q.data_ptr(), p.data_ptr(), m.data_ptr(), None if order is None else order.data_ptr(),
-        0 if order is None else order.shape[-1], block_rows(q), v.data_ptr(), w.data_ptr(),
-        dc.data_ptr(), nb, mm, d, 1.0 / (sigma * sigma),
+        0 if order is None else order.shape[-1], rows, v.data_ptr(), w.data_ptr(),
+        dc.data_ptr(), part, ticket, cols, nb, mm, d, 1.0 / (sigma * sigma),
         int(bool(withlogdet)), float(eta), int(bool(use_eta)), stream)
     name = "rhs_self_fwd_eta" if use_eta else "rhs_self_fwd"
     _raise_on(err, name)

@@ -804,3 +804,89 @@ def test_ring_loss_on_card_matches_cpu_and_counts_launches(cuda, eta):
     _close(res["cuda"][1], res["cpu"][1], 1e-3)
     name = "rhs_cross_fwd_eta" if eta else "rhs_cross_fwd"
     assert launches == {"rhs_cross_fwd": 0, "rhs_cross_fwd_eta": 0, name: 3, "ksum": 2 * 3 + 3}
+
+
+# ---------------------------------------------------------------------------
+# the direct forward kernels (csrc/direct.cuh): the any-eta self/cross
+# forward and the ext forward, their column axis cut into chunks
+# ---------------------------------------------------------------------------
+
+DIRECT_CASES = [
+    # kernel, frames, rows, columns, d, eta, sigma: what the shape covers
+    ("self", 1, 3001, 3001, 2, ETA, SIG),        # rows not a multiple of the block's 64
+    ("self", 2, 8193, 8193, 3, ETA, SIG),        # chunks, the last ragged; d = 3
+    ("cross", 2, 1000, 70001, 3, ETA, SIG),      # columns not a multiple of a chunk
+    ("cross", 3, 1, 5003, 2, ETA, SIG),          # one-row frames, an all-masked frame
+    ("ext", 2, 3001, 301, 2, 0.0, SIG),          # rows not a multiple of the block's 128
+    ("ext", 3, 700, 40001, 3, 0.0, SIG),         # chunks, ragged columns
+    ("ext_eta", 3, 1, 5003, 3, ETA, SIG),        # one-row frames, an all-masked frame
+    ("ext_eta", 10, 380, 65536, 2, 1 / 500, 0.05),  # v_field's shape, in chunks
+]
+
+
+def _direct_case(kernel, b, m, n, d, eta, sig, device):
+    """Inputs of one direct forward case (a box cloud of rows against
+    another of columns, ragged masks; with three frames or more, frame 1's
+    columns all masked and frame 2's rows), and (call, reference, counter)."""
+    from difficp_torch.ops import rhs_cross as RC
+    from difficp_torch.ops import rhs_ext as RE
+
+    rng = np.random.default_rng(m + n + d)
+    q = rng.uniform(size=(b, m, d))
+    p = 0.05 * rng.normal(size=(b, m, d))
+    mr = (rng.uniform(size=(b, m)) > 0.1).astype(np.float64)
+    qc = rng.uniform(-0.05, 1.05, size=(b, n, d))
+    pc = 0.05 * rng.normal(size=(b, n, d))
+    mc = (rng.uniform(size=(b, n)) > 0.1).astype(np.float64)
+    if kernel == "ext_eta" and n == 65536:
+        mr[:] = 1.0  # v_field's all-ones data mask
+    if b >= 3:
+        mc[1] = 0.0
+        mr[2] = 0.0
+    if m == 1:
+        mr[0] = 1.0
+    t = [torch.tensor(a, dtype=torch.float32, device=device) for a in (q, p, mr, qc, pc, mc)]
+    q, p, mr, qc, pc, mc = t
+    wl = not (kernel == "ext_eta" and n == 65536)  # v_field: logdet off
+    if kernel == "self":
+        return (lambda: RS.rhs_self_fwd(q, p, mr, sig, wl, eta),
+                lambda: RS.rhs_self_fwd_reference(q.double(), p.double(), mr.double(), sig,
+                                                  wl, eta),
+                (RS.launches, "rhs_self_fwd_eta"))
+    if kernel == "cross":
+        return (lambda: RC.rhs_cross_fwd(q, p, mr, qc, pc, mc, sig, wl, eta),
+                lambda: RC.rhs_cross_fwd_reference(*(a.double() for a in t), sig, wl, eta),
+                (RC.launches, "rhs_cross_fwd_eta"))
+    # ext: the rows are data points (x = q, mx = mr), the columns the support
+    return (lambda: RE.rhs_ext_fwd(q, mr, qc, pc, mc, sig, wl, eta),
+            lambda: RE.rhs_ext_fwd_reference(q.double(), mr.double(), qc.double(),
+                                             pc.double(), mc.double(), sig, wl, eta),
+            (RE.launches, "rhs_ext_fwd_eta" if eta else "rhs_ext_fwd"))
+
+
+@pytest.mark.parametrize("case", DIRECT_CASES, ids=lambda c: "-".join(map(str, c[:5])))
+def test_direct_forwards_match_plain_at_ragged_shapes(cuda, case):
+    """The redesigned direct forwards (the any-eta self and cross forward,
+    the ext forward of either kind) against their plain versions in float64
+    on the same float32 inputs: each output within TOL_FWD of its largest
+    plain value, each frame's dcost within TOL_FWD of the sum of its terms'
+    magnitudes; a frame of masked rows, and one of masked columns, zero; a
+    second call equal bit for bit; the kernel's launch counter one up a
+    call."""
+    call, reference, (counts, name) = _direct_case(*case, cuda)
+    before = counts[name]
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert counts[name] == before + 2
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    ref = reference()
+    for x, r in zip(got[:-1], ref[:-1]):
+        _close(x, r, TOL_FWD)
+    dc, rdc = got[-1].double(), ref[-1]
+    assert float((dc.sum(-1) - rdc.sum(-1)).abs().max()) <= TOL_FWD * float(
+        rdc.abs().sum(-1).max()) + 1e-30
+    if got[0].shape[0] >= 3:
+        # frame 1's columns all masked, frame 2's rows
+        assert bool((got[0][1] == 0).all()) and bool((got[0][2] == 0).all())
