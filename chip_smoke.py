@@ -6,8 +6,8 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases, each printing JSON lines with its seconds:
   1. device      the card's name and power limit (nvidia-smi);
   2. build       nvcc builds the kernels of difficp_torch/csrc from source,
-                 one nvcc per source, all started together (and, for
-                 comparison, one nvcc call over all sources is timed);
+                 one nvcc per source, all started together; g++ builds the
+                 host library (decim support's decimation);
   3. check       each kernel against its plain PyTorch version on the card
                  (the plain version evaluated in float64 on the same float32
                  inputs): the self RHS at M = 16,381 (ragged, ~10% masked) and
@@ -16,7 +16,9 @@ Phases, each printing JSON lines with its seconds:
                  N = 16,381 (ragged) and
                  65,536 data points against their grid support at sigma = 0.05
                  and a masked custom support; kmin2 on 33 leading frames with
-                 duplicated points, both modes; d = 2 and 3, logdet on and off;
+                 duplicated points, both modes, with a random mask and with
+                 ragged masks (each frame its own count of valid columns, the
+                 padding at the end); d = 2 and 3, logdet on and off;
   4. timing      each kernel at the shape its main path gives it: first held
                  against its plain version in float64 there (the grid path's
                  10 frames of 65,536 x M for the self and ext kernels, its 110
@@ -34,14 +36,24 @@ Phases, each printing JSON lines with its seconds:
   7. grid main path  bench.py's atlas workload widened to 10 frames of
                  65,536 points with grid support at sigma = 0.05: DiffPSR.run
                  and one stepwise Reg_opt (the coverage pass, kmin2);
-  8. grid route agreement  the same workload at 3 x 4,000 points through the
+  8. decim main path  the same workload with decim support (each frame's own
+                 greedy cover at rho = 1, padded with masks): run(2) and one
+                 stepwise Reg_opt; the support sizes a frame (decim_M), its
+                 set-up seconds (the decimation included), peak memory, its
+                 FE sequence bit for bit as first recorded, and the
+                 objective and gradient at its end against the float64
+                 table kernels;
+  9. decim route agreement  that workload at 3 x 4,000 points through the
+                 kernel route and the dense route: the FE sequences within
+                 5e-3;
+ 10. grid route agreement  the same workload at 3 x 4,000 points through the
                  kernel route and the dense route;
-  9. api grid    icp_two_set and icp_atlas with default numerical options;
- 10. profile     a torch.profiler trace of one outer iteration of the grid
+ 11. api grid    icp_two_set and icp_atlas with default numerical options;
+ 12. profile     a torch.profiler trace of one outer iteration of the grid
                  main path, cut to one L-BFGS step (reg_nmax = 1):
                  device-busy share, top CUDA operations, launches, host time
                  between launches;
- 11. check eta   the gradcomponent (eta != 0) slice's kernels against their
+ 13. check eta   the gradcomponent (eta != 0) slice's kernels against their
                  plain versions in float64: the generic kernel-sum (ksum) at
                  3, 6, 9, 20 and 121 columns (d = 2) and 333 (d = 3), masked,
                  several frames, a shared y and a split y axis, and at its
@@ -49,52 +61,52 @@ Phases, each printing JSON lines with its seconds:
                  instances of the self and ext forward kernels; the ETA
                  instances at eta = 0 against the eta = 0 kernels (self:
                  within 1e-5, ext: bit for bit);
- 12. timing eta  each of them at the shapes the two eta paths give it, first
+ 14. timing eta  each of them at the shapes the two eta paths give it, first
                  held against its float64 plain version there, then timed
                  beside its plain version and its bound; then the direct
                  forwards (the any-eta self forward, the ext forward) at
                  d = 3 likewise; the direct forwards and the grid path's
                  kernels are timed by their device time too (device_ms);
- 13. grid eta path  the grid main path with gradcomponent_LDDMM (version
+ 15. grid eta path  the grid main path with gradcomponent_LDDMM (version
                  "logdet", eta = 1/500), from start momenta computed with the
                  kernel-sum's float64 plain version, so that the sequence it
                  prints depends on the kernels only along the trajectory;
                  at its end the objective and its gradient through ksum
                  against those through the float64 plain version;
- 14. dense eta path  examples/run_large.py's configuration with version
+ 16. dense eta path  examples/run_large.py's configuration with version
                  "logdet" (eta = 1/200) at N = 8,192, driven as
                  run_large.main drives DiffPSR; before it, the stability of
                  its start (v2p's momenta for a zero field, one shoot) at
                  8,192, 16,384 and 32,768 points, in float32 on the kernels
                  and in float64 on their plain versions, which sets that size;
- 15. eta route agreement  the grid eta workload at 3 x 8,000 points through
+ 17. eta route agreement  the grid eta workload at 3 x 8,000 points through
                  the kernel route and the dense route (one outer
                  iteration and a stepwise Reg_opt); and the generated
                  backward's float32 error at the grid path's geometry against
                  float64 dense autograd (the poly-precision line);
- 16. api eta     icp_two_set and icp_atlas with gradcomponent_LDDMM=True,
+ 18. api eta     icp_two_set and icp_atlas with gradcomponent_LDDMM=True,
                  one iteration each;
- 17. profile eta a torch.profiler trace of one outer iteration of the grid
+ 19. profile eta a torch.profiler trace of one outer iteration of the grid
                  eta path, cut to 5 EM steps and one L-BFGS step of 4 inner
                  iterations, with the host operators by their own CPU time;
- 18. check cross the cross forward kernel (rows against a different column
+ 20. check cross the cross forward kernel (rows against a different column
                  set: rhs_cross_fwd, and its ETA instance) against its plain
                  version in float64, distinct sets of 16,384 and 65,536 points
                  with holes, d = 2 and 3, rows also shuffled; its ETA
                  instance at eta = 0 within 1e-5, its self entry bit for bit;
- 19. timing cross each instance at its ring path's shape, held against its
+ 21. timing cross each instance at its ring path's shape, held against its
                  plain version there, then timed beside it and its bound; the
                  same for ksum at every kernel-sum of both ring paths (the
                  generated cross backward's two tables, the cross
                  Hamiltonian's three);
- 20. ring twoset path  the point-sharded two-set registration
+ 22. ring twoset path  the point-sharded two-set registration
                  (parallel/twoset.py over parallel/ring.py) at world size 1
                  over NCCL on run_large's problem at 65,536 points: two
                  make_twoset_step calls against the single-device alternation
                  (EM + lddmm.optimize) at the same budgets, the start loss and
                  gradient against the dense path's, seconds per step and per
                  loss+grad, exact launch counts;
- 21. ring eta path  the same with version "logdet" at 8,192 points, one
+ 23. ring eta path  the same with version "logdet" at 8,192 points, one
                  step from the momenta DiffPSR.initialize_a0 gives (zero
                  momenta carry the gradcomponent field, whose shoot diverges
                  on these clouds).
@@ -180,6 +192,9 @@ GRID_FE_DIRECT = [22501056.0, -1347914.25, -1391784.75]
 GRID_FE_DIRECT_EXT_BWD = [22501056.0, -1347946.625, -1391633.875, -1413118.75]
 GRID_FE_DIRECT_FWD = [22501056.0, -1347924.625, -1392195.5, -1414159.75]
 GRID_FE_BEFORE = [22501056.0, -1347923.375, -1393268.25, -1414657.25]
+# the decim main path's free energies as this script printed them first
+# (held bit for bit: the decimation and the kernels are deterministic)
+DECIM_FE_BEFORE = [22501056.0, -1340335.875, -1352068.5, -1353956.375]
 DENSE_FE_DIRECT = [-134942.6875, -135171.546875]
 DENSE_FE_BEFORE = [-134947.359375, -135175.125]
 # dq of the eta = 0 backward at the dense main path's geometry (a spiral of
@@ -271,57 +286,17 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def one_call_build_seconds(_build):
-    """Wall seconds of one nvcc call over every source with the build's
-    flags (nvcc then compiles them one after another), beside the build's
-    one nvcc per source, all started together."""
-    out = _build.BUILD_DIR / "one_call_probe.so"
-    sources = sorted(_build.CSRC.glob("*.cu"))
-    t0 = time.perf_counter()
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *map(str, sources),
-                    "-o", str(out)], capture_output=True, check=True)
-    seconds = time.perf_counter() - t0
-    out.unlink()
-    return seconds
-
-
-def ksum_ptxas(log):
-    """{"D=d NT=n": [registers, spill-store bytes]} of each instance of the
-    ksum kernel, from ptxas's report in the build log."""
-    import re
-
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*ksum_kernelILi(\d)ELi(\d+)E", ln)
-        if m:
-            name = f"D={m.group(1)} NT={m.group(2)}"
-            out[name] = [None, None]
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores", ln)
-        if m:
-            out[name][1] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out[name][0] = int(m.group(1))
-            name = None
-    return out
-
-
-def direct_ptxas(log):
-    """{"SelfEta<d>" / "ExtFwd<d, eta>": [registers, spill-store bytes]} of
-    each instance of the direct forward kernel (csrc/direct.cuh), from
+def ptxas_report(log, pattern, name_of):
+    """{name: [registers, spill-store bytes]} of each kernel instance whose
+    entry function matches ``pattern`` (``name_of(match)`` its name), from
     ptxas's report in the build log."""
     import re
 
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*direct_kernelINS_\d+(SelfEta|ExtFwd)"
-                      r"ILi(\d)E(?:Lb(\d)E)?", ln)
+        m = re.search(r"Compiling entry function '" + pattern, ln)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}" + (f", {bool(int(m.group(3)))}>" if m.group(3)
-                                                     else ">")
+            name = name_of(m)
             out[name] = [None, None]
             continue
         if name is None:
@@ -336,29 +311,56 @@ def direct_ptxas(log):
     return out
 
 
+def ksum_ptxas(log):
+    """Each instance of the ksum kernel: {"D=d NT=n": [registers, spills]}."""
+    return ptxas_report(log, r".*ksum_kernelILi(\d)ELi(\d+)E",
+                        lambda m: f"D={m.group(1)} NT={m.group(2)}")
+
+
+def direct_ptxas(log):
+    """Each instance of the direct forward kernel (csrc/direct.cuh):
+    {"SelfEta<d>" / "ExtFwd<d, eta>": [registers, spills]}."""
+    return ptxas_report(
+        log, r".*direct_kernelINS_\d+(SelfEta|ExtFwd)ILi(\d)E(?:Lb(\d)E)?",
+        lambda m: f"{m.group(1)}<{m.group(2)}"
+                  + (f", {bool(int(m.group(3)))}>" if m.group(3) else ">"))
+
+
+def kmin2_ptxas(log):
+    """Each instance of the kmin2 kernel: {"D=d exclude_self=b": [registers,
+    spills]}."""
+    return ptxas_report(log, r".*kmin2_kernelILi(\d)ELb(\d)E",
+                        lambda m: f"D={m.group(1)} exclude_self={bool(int(m.group(2)))}")
+
+
 def device_ms(fn, reps):
     """Median device milliseconds of the one kernel each run of fn launches,
-    over the last ``reps`` of 3 reps runs in a torch.profiler trace: the
-    kernel's own time.  CUDA events around one call (cuda_ms) take the
-    host's time in the wrapper as well, since the card waits for the launch;
-    at a few microseconds of kernel that is most of what they read.  (The
-    trace may miss the first few kernels of a burst of short ones: hence
-    the runs ahead of those read.)"""
+    over the last ``reps`` of the kernels a torch.profiler trace of 3 reps
+    runs holds: the kernel's own time.  CUDA events around one call
+    (cuda_ms) take the host's time in the wrapper as well, since the card
+    waits for the launch; at a few microseconds of kernel that is most of
+    what they read.  The trace may miss the kernels of the first
+    milliseconds (13 of 45 launches of a 0.075 ms kernel were traced once):
+    a trace that holds fewer than ``reps`` is taken again, with twice the
+    runs, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3 * reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if len(spans) < reps:
-        raise RuntimeError(f"device_ms: {len(spans)} kernels traced over {3 * reps} calls")
-    return statistics.median((b - a) / 1e3 for a, b in spans[-reps:])
+    runs = 3 * reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if len(spans) >= reps:
+            return statistics.median((b - a) / 1e3 for a, b in spans[-reps:])
+        runs *= 2
+    raise RuntimeError(f"device_ms: {len(spans)} kernels traced over {runs // 2} calls")
 
 
 def cuda_ms(fn, reps):
@@ -440,11 +442,12 @@ def grid_frames(k, n, dim=2):
     return frames
 
 
-def grid_psr(k, n, version="hybrid"):
+def grid_psr(k, n, version="hybrid", scheme="grid"):
     """bench.py's atlas workload (bench.py:82-105) at k frames of n points:
     C = 20 GMM components from 20 points of frame 0, LDDMM ("hybrid", or
     "logdet" for the gradcomponent model) at sigma = 0.05, lambda = 500,
-    nt = 10 Euler, grid support with rho = 1."""
+    nt = 10 Euler, grid support with rho = 1 (or the decimation of each
+    frame, scheme="decim", at the same cover radius)."""
     import numpy as np
     from difficp_torch.models import gmm, lddmm
     from difficp_torch.models.psr import DiffPSR
@@ -458,7 +461,7 @@ def grid_psr(k, n, version="hybrid"):
                              scheme="Euler")
     psr = DiffPSR(x, state, gcfg, lcfg, device="cuda")
     psr.printstuff = False
-    psr.set_support_scheme("grid", rho=1.0)
+    psr.set_support_scheme(scheme, rho=1.0)
     return psr
 
 
@@ -811,37 +814,152 @@ def phase_check_ext(re, k2):
                          max(abs_err(dq, rdq), abs_err(dp, rdp)))
 
     # kmin2: 33 leading frames (3 x 11, as the coverage pass of 3 frames at
-    # nt = 10 sends them), duplicated points, both modes
+    # nt = 10 sends them), duplicated points, both modes; a random mask, and
+    # ragged masks as decim support gives them: each frame of the 11 its own
+    # count of valid columns (all, all but 3, one, none, half, two, ...), the
+    # padding at the end on a point where 50 rows sit
     rng = np.random.default_rng(5)
     for d in (2, 3):
-        for exclude_self, (n, m) in ((False, (16381, 500)), (True, (4096, 4096))):
+        for exclude_self, (n, m), ragged in ((False, (16381, 500), False),
+                                             (True, (4096, 4096), False),
+                                             (False, (16381, 500), True),
+                                             (True, (4096, 4096), True)):
             y = rng.uniform(size=(3, 11, m, d))
             y[..., m // 2:m // 2 + 100, :] = y[..., :100, :]
             x = y if exclude_self else rng.uniform(size=(3, 11, n, d))
             if not exclude_self:
                 x[..., :50, :] = y[..., 200:250, :]  # distance 0 to a y
             my = (rng.uniform(size=(3, 11, m)) > 0.1).astype(np.float64)
+            if ragged:
+                my[:] = 0.0
+                for f in range(11):
+                    valid = [m, m - 3, 1, 0, m // 2, 2][f % 6]
+                    my[:, f, :valid] = 1.0
+                    y[:, f, valid:] = -1.0
+                if not exclude_self:
+                    x[..., 50:100, :] = -1.0  # on the padding's place
             x, y, my = (torch.tensor(t, dtype=torch.float32, device="cuda")
                         for t in (x, y, my))
             m1, m2 = k2.kmin2(x, y, my, exclude_self)
             r1, r2 = k2.kmin2_reference(x.double(), y.double(), my.double(), exclude_self)
             torch.cuda.synchronize()
-            fin = torch.isfinite(r1) & torch.isfinite(r2)
+            # +inf where the plain version has it; each finite distance
+            # relative to itself
             same_inf = bool(((torch.isinf(m1.double()) == torch.isinf(r1))
                              & (torch.isinf(m2.double()) == torch.isinf(r2))).all())
-            rel = max(float(((a.double() - b).abs() / b.abs().clamp_min(1e-30))[fin].max())
-                      for a, b in ((m1, r1), (m2, r2)))
-            ab = max(abs_err(a[fin], b[fin]) for a, b in ((m1, r1), (m2, r2)))
+            rel = max(float(((a.double() - b).abs() / b.abs().clamp_min(1e-30))
+                            [torch.isfinite(b)].max()) for a, b in ((m1, r1), (m2, r2)))
+            ab = max(abs_err(a[torch.isfinite(b)], b[torch.isfinite(b)])
+                     for a, b in ((m1, r1), (m2, r2)))
             ok = same_inf and rel <= TOL_KMIN2
+            again = k2.kmin2(x, y, my, exclude_self)
+            same = torch.equal(m1, again[0]) and torch.equal(m2, again[1])
+            ok = ok and same
             emit({"phase": "check_kmin2", "frames": [3, 11], "N": n, "M": m, "d": d,
-                  "exclude_self": exclude_self, "ties": int((m1 == m2).sum()),
-                  "rel_err": rel, "tol": TOL_KMIN2, "ok": ok})
+                  "exclude_self": exclude_self, "ragged_masks": ragged,
+                  "ties": int((m1 == m2).sum()), "inf_m2": int(torch.isinf(m2).sum()),
+                  "rel_err": rel, "tol": TOL_KMIN2, "bit_identical_repeat": same, "ok": ok})
             if not ok:
                 fail("check_kmin2", f"kmin2 disagrees with its plain version at d={d} "
-                                    f"exclude_self={exclude_self}")
+                                    f"exclude_self={exclude_self} ragged={ragged}")
             note("kmin2", rel, ab)
     emit({"phase": "check_ext_done", "seconds": time.perf_counter() - t0})
     return worst
+
+
+def hold_path_kernels(phase, path, rs, re, k2, x, mx, q, p, mq, cov, seed):
+    """Each eta = 0 kernel of a registration path with external points, on
+    the path's own inputs, against its float64 plain version: the support's
+    self forward and backward, the ext forward and its two backward kernels
+    (data points x, mx; support q, p, mq; random cotangents from ``seed``;
+    logdet on, and off as the path runs them, with a zero dcost cotangent
+    for the self backward; the support's and the data rows' orders computed
+    once, as the path does) within TOL_FWD and TOL_BWD, and kmin2 over the
+    coverage pass's frames ``cov`` = (x, y, mask_y) within TOL_KMIN2 of each
+    distance, +inf where the plain version has it.  Fails the run on any
+    miss.  Returns the worst errors {kernel: [rel, abs]}, the cotangents
+    (gx, gc, gv, gw) and the orders."""
+    import torch
+
+    k, n, d = x.shape
+    m = q.shape[1]
+    sig = GRID_SIGMA
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gx = torch.randn(x.shape, generator=g, device="cuda")
+    gc = torch.randn((k,), generator=g, device="cuda")
+    gv = torch.randn(q.shape, generator=g, device="cuda")
+    gw = torch.randn(q.shape, generator=g, device="cuda")
+    order = rs.row_order(q, mq, sig)
+    xorder = re.data_order(x, mx, sig)
+    shape = {"path": path, "frames": k, "N": n, "M": m, "d": d,
+             "valid_M": [int(c) for c in mq.sum(-1).tolist()]}
+    worst = {}
+
+    def hold(name, rel, ab, tol, **rec):
+        ok = rel <= tol
+        emit({"phase": phase, "kernel": name, **shape, **rec, "rel_err": rel,
+              "abs_err": ab, "tol": tol, "ok": ok})
+        if not ok:
+            fail(phase, f"{name} disagrees with its plain version on the {path} "
+                        f"path's inputs {rec}")
+        old = worst.get(name, (0.0, 0.0))
+        worst[name] = [max(old[0], rel), max(old[1], ab)]
+
+    def hold_sums(name, got, ref, tol, dcost=None, **rec):
+        rel = max(rel_err(a, r) for a, r in zip(got, ref))
+        ab = max(abs_err(a, r) for a, r in zip(got, ref))
+        if dcost is not None:
+            # each frame's dcost against the sum of its terms' magnitudes
+            dc, rdc = dcost
+            rec["dcost_rel_err"] = float((dc.double().sum(-1) - rdc.sum(-1)).abs().max()
+                                         / rdc.abs().sum(-1).max().clamp_min(1e-300))
+            rel = max(rel, rec["dcost_rel_err"])
+        hold(name, rel, ab, tol, **rec)
+
+    x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8 = (
+        t.double() for t in (x, mx, q, p, mq, gx, gc, gv, gw))
+    for wl in (True, False):
+        got = rs.rhs_self_fwd(q, p, mq, sig, wl, order=order)
+        ref = rs.rhs_self_fwd_reference(q8, p8, mq8, sig, wl)
+        hold_sums("rhs_self_fwd", got[:2], ref[:2], TOL_FWD, (got[2], ref[2]), withlogdet=wl)
+        cot, cot8 = (gc, gc8) if wl else (torch.zeros_like(gc), torch.zeros_like(gc8))
+        hold_sums("rhs_self_bwd", rs.rhs_self_bwd(q, p, mq, gv, gw, cot, sig, wl, order),
+                  rs.rhs_self_bwd_reference(q8, p8, mq8, gv8, gw8, cot8, sig, wl),
+                  TOL_BWD, withlogdet=wl)
+        vx, dc = re.rhs_ext_fwd(x, mx, q, p, mq, sig, wl)
+        rvx, rdc = re.rhs_ext_fwd_reference(x8, mx8, q8, p8, mq8, sig, wl)
+        hold_sums("rhs_ext_fwd", [vx], [rvx], TOL_FWD, (dc, rdc), withlogdet=wl)
+        hold_sums("rhs_ext_bwd_dx",
+                  [re.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sig, wl, xorder)],
+                  [re.rhs_ext_bwd_dx_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl)],
+                  TOL_BWD, withlogdet=wl)
+        hold_sums("rhs_ext_bwd_dqdp",
+                  re.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sig, wl, order),
+                  re.rhs_ext_bwd_dqdp_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl),
+                  TOL_BWD, withlogdet=wl)
+    del x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8, got, ref, vx, dc, rvx, rdc
+    # kmin2 over all the coverage frames in one launch; its float64 plain
+    # version k frames at a time, to bound its memory
+    m1, m2 = k2.kmin2(*cov)
+    refs = [k2.kmin2_reference(*(t[s:s + k].double() for t in cov))
+            for s in range(0, cov[0].shape[0], k)]
+    rel, ab, same_inf = 0.0, 0.0, True
+    for i, got in enumerate((m1, m2)):
+        ref = torch.cat([r[i] for r in refs])
+        fin = torch.isfinite(ref)
+        same_inf &= bool((torch.isinf(got) == torch.isinf(ref)).all())
+        if bool(fin.any()):
+            # relative to each distance: a plain rel_err over the largest
+            # would hide the small ones the coverage check reads
+            err = (got.double() - ref).abs()[fin]
+            rel = max(rel, float((err / ref.abs()[fin].clamp_min(1e-30)).max()))
+            ab = max(ab, float(err.max()))
+    del refs, m1, m2
+    hold("kmin2", rel if same_inf else math.inf, ab, TOL_KMIN2,
+         coverage_frames=cov[0].shape[0], coverage_M=cov[1].shape[1],
+         inf_where_plain=same_inf)
+    torch.cuda.empty_cache()
+    return worst, (gx, gc, gv, gw), (order, xorder)
 
 
 def phase_timing_ext(rs, re, k2):
@@ -850,9 +968,10 @@ def phase_timing_ext(rs, re, k2):
     data rows' order computed once beforehand, as the path does); kmin2 at
     the coverage pass's (nt + 1) K frames.  Each kernel of the grid path, the
     self kernels on the support included, is first held against its plain
-    version in float64 on the same inputs.  Then CUDA events, median of 15,
-    beside the bound: the function's least work, for dx and dq/dp the lower
-    of that and their table route's own (table_bound)."""
+    version in float64 on the same inputs (hold_path_kernels).  Then CUDA
+    events, median of 15, beside the bound: the function's least work, for
+    dx and dq/dp the lower of that and their table route's own
+    (table_bound)."""
     import numpy as np
     import torch
     from difficp_torch.utils.point_sets import grid_support
@@ -868,13 +987,6 @@ def phase_timing_ext(rs, re, k2):
     p = 0.05 * torch.randn(q.shape, generator=g, device="cuda")
     mx = torch.ones((k, n), device="cuda")
     mq = torch.ones((k, m), device="cuda")
-    # the support's and the data rows' orders, once per optimisation on the path
-    order = rs.row_order(q, mq, GRID_SIGMA)
-    xorder = re.data_order(x, mx, GRID_SIGMA)
-    gx = torch.randn(x.shape, generator=g, device="cuda")
-    gc = torch.randn((k,), generator=g, device="cuda")
-    gv = torch.randn(q.shape, generator=g, device="cuda")
-    gw = torch.randn(q.shape, generator=g, device="cuda")
     # the work this run's data needs: every unmasked (x, q) pair once
     pairs = float((mx.sum(-1) * mq.sum(-1)).sum())
     side_x, side_q = 4.0 * k * n, 4.0 * k * m
@@ -886,74 +998,9 @@ def phase_timing_ext(rs, re, k2):
           mq.expand(nt + 1, k, m).reshape(-1, m).contiguous()]
     cov_pairs = float(xs[0].shape[0]) * n * m
     sig = GRID_SIGMA
-
-    worst = {}
-
-    def hold(name, got, ref, tol, dcost=None, **shape):
-        rel = max(rel_err(a, r) for a, r in zip(got, ref))
-        ab = max(abs_err(a, r) for a, r in zip(got, ref))
-        rec = {"phase": "check_main_shape", "kernel": name, **shape}
-        if dcost is not None:
-            # each frame's dcost against the sum of its terms' magnitudes
-            dc, rdc = dcost
-            dc_rel = float((dc.double().sum(-1) - rdc.sum(-1)).abs().max()
-                           / rdc.abs().sum(-1).max().clamp_min(1e-300))
-            rec["dcost_rel_err"] = dc_rel
-            rel = max(rel, dc_rel)
-        ok = rel <= tol
-        emit({**rec, "rel_err": rel, "abs_err": ab, "tol": tol, "ok": ok})
-        if not ok:
-            fail("check_main_shape", f"{name} disagrees with its plain version "
-                                     f"at the grid path's shape {shape}")
-        old = worst.get(name, (0.0, 0.0))
-        worst[name] = [max(old[0], rel), max(old[1], ab)]
-
-    f64 = [t.double() for t in (x, mx, q, p, mq, gx, gc, gv, gw)]
-    x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8 = f64
-    shape = {"frames": k, "N": n, "M": m, "d": d}
-    # logdet off is the grid path's mode (and a zero dcost cotangent for the
-    # self backward); logdet on covers the rest of each kernel
-    for wl in (True, False):
-        got = rs.rhs_self_fwd(q, p, mq, sig, wl)
-        ref = rs.rhs_self_fwd_reference(q8, p8, mq8, sig, wl)
-        hold("rhs_self_fwd", got[:2], ref[:2], TOL_FWD, (got[2], ref[2]),
-             withlogdet=wl, **shape)
-        cot, cot8 = (gc, gc8) if wl else (torch.zeros_like(gc), torch.zeros_like(gc8))
-        hold("rhs_self_bwd", rs.rhs_self_bwd(q, p, mq, gv, gw, cot, sig, wl),
-             rs.rhs_self_bwd_reference(q8, p8, mq8, gv8, gw8, cot8, sig, wl),
-             TOL_BWD, withlogdet=wl, **shape)
-        vx, dc = re.rhs_ext_fwd(x, mx, q, p, mq, sig, wl)
-        rvx, rdc = re.rhs_ext_fwd_reference(x8, mx8, q8, p8, mq8, sig, wl)
-        hold("rhs_ext_fwd", [vx], [rvx], TOL_FWD, (dc, rdc), withlogdet=wl, **shape)
-        hold("rhs_ext_bwd_dx", [re.rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sig, wl, xorder)],
-             [re.rhs_ext_bwd_dx_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl)],
-             TOL_BWD, withlogdet=wl, **shape)
-        hold("rhs_ext_bwd_dqdp", re.rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sig, wl, order),
-             re.rhs_ext_bwd_dqdp_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl),
-             TOL_BWD, withlogdet=wl, **shape)
-    del f64, x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8, got, ref, vx, dc, rvx, rdc
-    # kmin2 over all (nt + 1) K frames in one launch; its float64 plain version
-    # one time step (K frames) at a time, to bound its memory
-    m1, m2 = k2.kmin2(*xs)
-    refs = [k2.kmin2_reference(*(t[s:s + k].double() for t in xs))
-            for s in range(0, xs[0].shape[0], k)]
-    r1, r2 = (torch.cat([r[i] for r in refs]) for i in (0, 1))
-    del refs
-    # relative to each distance: a plain rel_err over the largest would hide
-    # the small ones the coverage check reads
-    rel = max(float(((a.double() - b).abs() / b.abs().clamp_min(1e-30)).max())
-              for a, b in ((m1, r1), (m2, r2)))
-    ab = max(abs_err(a, b) for a, b in ((m1, r1), (m2, r2)))
-    ok = rel <= TOL_KMIN2
-    emit({"phase": "check_main_shape", "kernel": "kmin2", "frames": xs[0].shape[0],
-          "N": n, "M": m, "d": d, "rel_err": rel, "abs_err": ab, "tol": TOL_KMIN2,
-          "ok": ok})
-    if not ok:
-        fail("check_main_shape", "kmin2 disagrees with its plain version at the "
-                                 "coverage pass's shape")
-    worst["kmin2"] = [rel, ab]
-    del m1, m2, r1, r2
-    torch.cuda.empty_cache()
+    worst, (gx, gc, gv, gw), (order, xorder) = hold_path_kernels(
+        "check_main_shape", "grid", rs, re, k2, x, mx, q, p, mq, xs, seed=4)
+    del gv, gw
 
     def library_kmin2():
         dist = torch.cdist(xs[0], xs[1])
@@ -1126,6 +1173,134 @@ def phase_grid_route_agreement(backend):
           "seconds": time.perf_counter() - t0})
     if rel > TOL_ROUTE_FE:
         fail("grid_route_agreement", "kernel and dense routes disagree")
+
+
+def phase_decim_main_path(counters, orders):
+    """The grid main path's workload (10 x 65,536 points, sigma = 0.05) with
+    decim support, the JAX package's default scheme: each frame's own greedy
+    cover at r = rho sigma, padded to one width with masks.  DiffPSR.run(2)
+    and one stepwise Reg_opt (its coverage pass: kmin2 over the (nt + 1) K
+    frames with the per-frame masks); then the objective and its gradient at
+    the path's end against the float64 table kernels', and each kernel of the
+    path against its float64 plain version on the path's own inputs (its
+    data points, its masked per-frame supports and momenta, and the coverage
+    pass's frames of one more shoot: hold_path_kernels); then kmin2's time
+    at the coverage pass's shape.  Returns the launches, the worst errors and
+    kmin2's timing record."""
+    import torch
+    from difficp_torch.models import lddmm
+    from difficp_torch.ops import kmin2 as k2
+    from difficp_torch.ops import rhs_ext as re
+    from difficp_torch.ops import rhs_self as rs
+
+    k, n = 10, 65536
+    reset(*counters.values(), orders)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    psr = grid_psr(k, n, scheme="decim")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    decim_m = [int(c) for c in psr.qmask.sum(1).tolist()]
+    fe0 = psr.FE
+    t1 = time.perf_counter()
+    fes = psr.run(2, **GRID_RUN)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t2
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    flat = {key: v for c in counters.values() for key, v in c.items() if key in ETA0_KERNELS}
+    fe_seq = [fe0, *map(float, fes), psr.FE]
+    evals = flat["rhs_self_bwd"] / psr.lcfg.nt
+    n_orders = orders["row_order"]
+    emit({"phase": "decim_main_path", "frames": k, "n_points": n, "rho": psr.rho,
+          "decim_M": decim_m, "support_width": int(psr.q0.shape[1]),
+          "sigma_lddmm": GRID_SIGMA, "setup_seconds": setup, "run_seconds": run_s,
+          "seconds_per_outer_iteration": run_s / 2, "reg_opt_seconds": reg_s,
+          "seconds": seconds, "FE_sequence": fe_seq,
+          "fe_increase_events": psr.fe_increase_events,
+          "uncovered": psr.last_reg_stats["uncovered"].cpu().tolist(),
+          "last_reg_evals": psr.last_reg_evals.cpu().tolist(),
+          "launches": flat, "loss_grad_evals": evals, "row_orders": n_orders,
+          "max_memory_allocated_bytes": peak})
+    if not all(v > 0 for v in flat.values()):
+        fail("decim_main_path", f"a kernel of the path never launched: {flat}")
+    if not 0 < n_orders <= evals:
+        fail("decim_main_path", f"{n_orders} row orders for {evals} loss+grad evaluations")
+    if not min(decim_m) > 0 or psr.support_scheme != "decim":
+        fail("decim_main_path", f"a frame has no support point: {decim_m}")
+    if not (all(map(math.isfinite, fe_seq)) and monotone(fe_seq)
+            and psr.fe_increase_events == 0):
+        fail("decim_main_path", "free energy not finite or not monotone")
+    if not fe_seq[-1] < fe_seq[0]:
+        fail("decim_main_path", "free energy did not decrease over the run")
+    if tuple(psr.x1.shape) != (k, n, 2) or not bool(torch.isfinite(psr.x1).all()):
+        fail("decim_main_path", "warped points have the wrong shape or are not finite")
+    hold_fes("decim_main_path", fe_seq, {}, DECIM_FE_BEFORE)
+    hold_end_state("decim_main_end_state", psr, float64_table_kernels)
+
+    nx, m, d = psr.x0.shape[1], psr.q0.shape[1], psr.D  # the padded widths
+    a0 = psr.a0.detach()
+    with torch.no_grad():
+        _, traj = lddmm.shoot(psr.lcfg, psr.q0, a0, psr.x0, psr.qmask, psr.xmask,
+                              save_traj=True)
+    # the coverage pass's call: every time step of every frame, the support's
+    # mask expanded over the time steps (backend.check_coverage)
+    cov = [traj.x.reshape(-1, nx, d).contiguous(), traj.q.reshape(-1, m, d).contiguous(),
+           psr.qmask.expand(traj.q.shape[:-1]).reshape(-1, m).contiguous()]
+    del traj
+    worst, _, _ = hold_path_kernels("check_decim_path", "decim", rs, re, k2, psr.x0,
+                                    psr.xmask, psr.q0, a0, psr.qmask, cov, seed=5)
+    fn = lambda: k2.kmin2(*cov)  # noqa: E731
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    frames = cov[0].shape[0]
+    # the work this run's data needs: the pairs with a valid support column
+    pairs = float(nx) * float(cov[2].sum())
+    bd = bound(pairs, k2.ops_per_pair(d), 0.0,
+               4.0 * frames * (nx * d + m * (d + 1) + 2 * nx))
+    timing = dict(call=f"decim coverage {frames} x {nx:,} x {m}", frames=frames, N=nx, M=m,
+                  valid_M=[int(c) for c in psr.qmask.sum(-1).tolist()],
+                  ms=cuda_ms(fn, 15), device_ms=device_ms(fn, 15), pairs=pairs, **bd)
+    timing["device_share_of_bound"] = bd["bound_ms"] / timing["device_ms"]
+    emit({"phase": "timing", "kernel": "kmin2", **timing})
+    del cov
+    torch.cuda.empty_cache()
+    return flat, worst, timing
+
+
+def phase_decim_route_agreement(backend):
+    """The decim main path's workload at 3 x 4,000 points through the kernel
+    route and the dense route on the card: run(2) and one stepwise Reg_opt,
+    the FE sequences entry by entry within TOL_ROUTE_FE."""
+    import torch
+
+    t0 = time.perf_counter()
+    fes = {}
+    for mode in ("kernel", "dense"):
+        backend.set_backend(mode)
+        try:
+            psr = grid_psr(3, 4000, scheme="decim")
+            fe0 = psr.FE
+            run = psr.run(2, **GRID_RUN)
+            psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
+            torch.cuda.synchronize()
+        finally:
+            backend.set_backend(None)
+        fes[mode] = [fe0, *map(float, run), psr.FE]
+        if psr.fe_increase_events:
+            fail("decim_route_agreement", f"free energy rose on the {mode} route")
+    rel = rel_diff_fes(fes["kernel"], fes["dense"])
+    emit({"phase": "decim_route_agreement", "frames": 3, "n_points": 4000,
+          "decim_M": [int(c) for c in psr.qmask.sum(1).tolist()],
+          "FE_kernel": fes["kernel"], "FE_dense": fes["dense"], "rel_diff": rel,
+          "tol": TOL_ROUTE_FE, "seconds": time.perf_counter() - t0})
+    if rel > TOL_ROUTE_FE:
+        fail("decim_route_agreement", "kernel and dense routes disagree")
 
 
 def phase_api_grid(counters, icp_two_set, icp_atlas):
@@ -2495,11 +2670,15 @@ def main():
 
     _build.build(force=True)
     _build.library()
+    _build.build_host(force=True)
+    _build.host_library()
     regs = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln]
     emit({"phase": "build", "seconds": _build.build_seconds,
-          "one_call_seconds": one_call_build_seconds(_build), "ptxas": regs,
+          "host_seconds": _build.host_build_seconds,
+          "ptxas": regs,
           "ksum_ptxas": ksum_ptxas(_build.build_log),
-          "direct_ptxas": direct_ptxas(_build.build_log)})
+          "direct_ptxas": direct_ptxas(_build.build_log),
+          "kmin2_ptxas": kmin2_ptxas(_build.build_log)})
 
     counters = {"rhs_self": rs.launches, "rhs_ext": re.launches, "kmin2": k2.launches,
                 "ksum": ks.launches, "rhs_cross": rc.launches}
@@ -2521,6 +2700,12 @@ def main():
     phase_api(rs, backend, icp_two_set, run_large)
     emit({"phase": "api_done", "seconds": time.perf_counter() - t0})
     psr, grid_launches = phase_grid_main_path(counters, rs.orders)
+    t0 = time.perf_counter()
+    decim_launches, worst_decim, kmin2_decim = phase_decim_main_path(counters, rs.orders)
+    for name, (rel, ab) in worst_decim.items():
+        worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
+    phase_decim_route_agreement(backend)
+    emit({"phase": "decim_done", "seconds": time.perf_counter() - t0})
     phase_grid_route_agreement(backend)
     phase_api_grid(counters, icp_two_set, icp_atlas)
     t0 = time.perf_counter()
@@ -2581,7 +2766,8 @@ def main():
     kernels = []
     for name, (source, rep, also) in replaces.items():
         t = timing[name]
-        launches_by_path = {"grid_main_path": grid_launches[name]}
+        launches_by_path = {"grid_main_path": grid_launches[name],
+                            "decim_main_path": decim_launches[name]}
         if name in dense_launches:
             launches_by_path["dense_main_path"] = dense_launches[name]
         entry = {
@@ -2602,6 +2788,13 @@ def main():
                                  for r in (t, timing[f"{name}_grid"])])
         if t.get("device_ms") is not None:
             entry["device_ms"] = t["device_ms"]
+        if name == "kmin2":
+            # and the decim path's coverage shape
+            entry.update(shapes=[
+                dict(call=f"grid coverage {t['frames']} x {t['N']:,} x {t['M']}",
+                     **{key: t[key] for key in ("ms", "device_ms", "bound_ms", "bound_by")}),
+                {key: kmin2_decim[key] for key in ("call", "ms", "device_ms", "bound_ms",
+                                                   "bound_by")}])
         if name in DIRECT_KERNELS:
             # and the d = 3 shape
             d3 = timing_d3[name]

@@ -4,8 +4,8 @@
 K frames (x S structures) are registered to common GMM models whose
 parameters (centroids, weights, sigma, outlier odds) are inferred by EM.
 
-Ported: the diffeomorphic type, with ``GMM_parameters["init_components"]``
-given as
+Ported: the diffeomorphic type, with dense, decim, grid (the default) or
+custom ``support_LDDMM`` and ``GMM_parameters["init_components"]`` given as
   - int N: ad hoc init with N components (re-initialized from the data);
   - ("set", i): point set x[i] as initial centroids;
   - a list of (GMMState, GMMConfig) pairs (one per structure).

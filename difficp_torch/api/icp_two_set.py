@@ -5,9 +5,9 @@ Point set xA is registered onto xB, whose points are the fixed centroids of a
 GMM; the GMM sigma (and optionally an outlier weight) are optimized by EM
 while the registration is optimized per alternation.
 
-Ported: the diffeomorphic branch with dense, grid (the default) or custom
-``support_LDDMM``.  Affine types, decim support and ``lambda_LDDMM="auto"``
-raise ``NotImplementedError`` until their modules are ported.
+Ported: the diffeomorphic branch with dense, decim, grid (the default) or
+custom ``support_LDDMM``.  Affine types and ``lambda_LDDMM="auto"`` raise
+``NotImplementedError`` until their modules are ported.
 
 :return: (PSR object, evol dict with per-iteration a0 / GMM snapshots)
 """

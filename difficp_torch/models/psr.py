@@ -13,11 +13,12 @@ The alternating free-energy minimization of the reference (PSR.py:42-653):
   leading K axis of one tensor (``utils/lbfgs``).
 - State lives in tensors on ``device``; the class is a thin host-side wrapper.
 
-Support is dense (support = all data points, the default), a grid or custom
-points; with grid or custom support the data are advected as external points
-and each ``Reg_opt`` ends with a coverage pass over the saved trajectory.
-``run()`` is the fused loop's semantics as a Python loop.  Decim support and
-``AffinePSR`` come with later slices and raise ``NotImplementedError``.
+Support is dense (support = all data points, the default), a greedy
+decimation of each frame's points (decim), a grid or custom points; with
+decim, grid or custom support the data are advected as external points and
+each ``Reg_opt`` ends with a coverage pass over the saved trajectory.
+``run()`` is the fused loop's semantics as a Python loop.  ``AffinePSR``
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ from difficp_torch.models import lddmm as lddmm_mod
 from difficp_torch.models.registration import LDDMMRegistration
 from difficp_torch.ops import backend as red
 from difficp_torch.utils.integrators import tree_map
-from difficp_torch.utils.io import PaddedFrames, pad_structures
+from difficp_torch.utils.io import PaddedFrames, pad_frames, pad_structures
 from difficp_torch.utils.lbfgs import zero_memory
-from difficp_torch.utils.point_sets import grid_support
+from difficp_torch.utils.point_sets import decimate_sets, grid_support
 from difficp_torch.utils.spec import as_tensor, resolve_device
 
 
@@ -361,31 +362,45 @@ class DiffPSR(MultiPSR):
 
     def set_support_scheme(self, scheme="decim", rho=1.0, xticks=None,
                            yticks=None, q0=None):
-        """Choose LDDMM support points: a rectangular grid covering the data
-        with step rho * sigma, or custom points (PSR.py:430-493).  The same
-        support serves every frame."""
+        """Choose LDDMM support points (PSR.py:430-493) at the cover radius
+        rho * sigma: a greedy decimation of each frame's points, all its
+        structures together (decim: a support of each frame's own, padded to
+        one width with masks), a rectangular grid covering the data with that
+        step, or custom points (the same support for every frame)."""
+        r_cover = rho * self.lcfg.sigma
         if scheme == "decim":
-            raise NotImplementedError(
-                "decim support needs decimate and its native library, which "
-                "come with the decim-support slice; use 'grid' or 'custom'")
-        if scheme == "grid":
-            ticks = None
-            if xticks is not None and yticks is not None:
-                ticks = [np.asarray(xticks), np.asarray(yticks)]
-            pts = grid_support(self.x0.detach().cpu().numpy().reshape(-1, self.D),
-                               rho * self.lcfg.sigma, ticks=ticks)
-        elif scheme == "custom":
-            if q0 is None:
-                raise ValueError("custom support needs q0")
-            pts = np.asarray(q0.detach().cpu() if isinstance(q0, torch.Tensor) else q0,
-                             np.float32)
+            sets = [[self.structs[s].unpad(k) for s in range(self.S)] for k in range(self.K)]
+            kept = iter(decimate_sets([xs for frame in sets for xs in frame], r_cover))
+            per_frame = []
+            for k, frame in enumerate(sets):
+                allk = np.concatenate([xs[next(kept)[0]] for xs in frame], axis=0)
+                if self.printstuff:
+                    ntot = sum(xs.shape[0] for xs in frame)
+                    print(f"Decimation, frame {k} : {allk.shape[0]} support points "
+                          f"({allk.shape[0] / ntot:.0%} of original sets)")
+                per_frame.append(allk)
+            padded = pad_frames(per_frame, self.device)
+            q0_new, qmask_new = padded.x, padded.mask
+        elif scheme in ("grid", "custom"):
+            if scheme == "grid":
+                ticks = None
+                if xticks is not None and yticks is not None:
+                    ticks = [np.asarray(xticks), np.asarray(yticks)]
+                pts = grid_support(self.x0.detach().cpu().numpy().reshape(-1, self.D),
+                                   r_cover, ticks=ticks)
+            else:
+                if q0 is None:
+                    raise ValueError("custom support needs q0")
+                pts = np.asarray(q0.detach().cpu() if isinstance(q0, torch.Tensor) else q0,
+                                 np.float32)
+            q0_new = as_tensor(pts, self.device).expand(self.K, *pts.shape).contiguous()
+            qmask_new = torch.ones((self.K, pts.shape[0]), device=self.device)
         else:
             raise ValueError(f"Unknown support scheme: {scheme}")
         self.rho = rho
         self.support_scheme = scheme
         q0_prev, qmask_prev = self.q0, self.qmask
-        self.q0 = as_tensor(pts, self.device).expand(self.K, *pts.shape).contiguous()
-        self.qmask = torch.ones((self.K, pts.shape[0]), device=self.device)
+        self.q0, self.qmask = q0_new, qmask_new
         self.update_a0(q0_prev, qmask_prev, rcond=1e-1)
         # the momentum parameter space changed: carried L-BFGS curvature
         # pairs refer to the old support and are meaningless now

@@ -1,13 +1,15 @@
-"""Build the package's CUDA kernels with nvcc at first use and load them.
+"""Build the package's native code at first use and load it.
 
 Every ``*.cu`` under ``difficp_torch/csrc/`` is compiled for ``sm_90a`` by its
 own ``nvcc -c``, all started together, and the objects are linked by one
 ``nvcc -shared`` into ``build/libdifficp_torch_kernels.so`` at the repository
-root.  The library has a plain C interface and is loaded with ``ctypes``; the
-kernel modules declare each function's ``argtypes``.  A build is reused while
-it is newer than every source and header and was made with the same nvcc
-command (kept in a stamp file beside it).  A failed build raises with nvcc's
-output.
+root.  The host code (``*.cpp``: the greedy decimation of decim support) is
+built by one ``g++`` into ``build/libdifficp_torch_host.so``.  Each library
+has a plain C interface and is loaded with ``ctypes``; the modules that call
+it declare each function's ``argtypes``.  A build is reused while it is newer
+than every source and header and was made with the same command (kept in a
+stamp file beside it).  A failed build raises with the compiler's output:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -26,7 +28,13 @@ STAMP_PATH = LIB_PATH.with_suffix(".cmd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+HOST_LIB_PATH = BUILD_DIR / "libdifficp_torch_host.so"
+HOST_STAMP_PATH = HOST_LIB_PATH.with_suffix(".cmd")
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
 _lib = None
+_host_lib = None
+host_build_seconds = None  # wall time of the last host build, None when none ran
 build_log = ""  # nvcc's output of the last build (register and spill report)
 build_seconds = None  # wall time of the last build, None when none ran
 
@@ -41,12 +49,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built at first use")
 
 
-def _fresh(inputs, cmd_key: str) -> bool:
-    if not (LIB_PATH.exists() and STAMP_PATH.exists()):
+def _fresh(inputs, cmd_key: str, lib=LIB_PATH, stamp=STAMP_PATH) -> bool:
+    if not (lib.exists() and stamp.exists()):
         return False
     newest = max(s.stat().st_mtime for s in inputs)
-    return (LIB_PATH.stat().st_mtime >= newest
-            and STAMP_PATH.read_text() == cmd_key)
+    return lib.stat().st_mtime >= newest and stamp.read_text() == cmd_key
+
+
+def _publish(tmp: Path, lib: Path, stamp: Path, cmd_key: str, tag: str):
+    """Move a finished build and its stamp into place (atomic renames:
+    concurrent builds do not write over each other)."""
+    os.replace(tmp, lib)
+    stamp_tmp = BUILD_DIR / f"{stamp.name}.{tag}"
+    stamp_tmp.write_text(cmd_key)
+    os.replace(stamp_tmp, stamp)
 
 
 def build(force: bool = False) -> Path:
@@ -88,10 +104,7 @@ def build(force: bool = False) -> Path:
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
-    os.replace(tmp, LIB_PATH)
-    stamp_tmp = BUILD_DIR / f"{STAMP_PATH.name}.{tag}"
-    stamp_tmp.write_text(cmd_key)
-    os.replace(stamp_tmp, STAMP_PATH)
+    _publish(tmp, LIB_PATH, STAMP_PATH, cmd_key, tag)
     build_log = "".join(logs)
     build_seconds = time.perf_counter() - t0
     return LIB_PATH
@@ -103,3 +116,36 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+def build_host(force: bool = False) -> Path:
+    """Compile the host sources (``csrc/*.cpp``) with g++ into one library,
+    unless one from the same sources and command is already there."""
+    global host_build_seconds
+    sources = sorted(CSRC.glob("*.cpp"))
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host library is built at first use")
+    cmd_key = " ".join([gxx, *GXX_FLAGS, *(s.name for s in sources)])
+    if not force and _fresh(sources, cmd_key, HOST_LIB_PATH, HOST_STAMP_PATH):
+        return HOST_LIB_PATH
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"{HOST_LIB_PATH.name}.{tag}"
+    out = subprocess.run([gxx, *GXX_FLAGS, *map(str, sources), "-o", str(tmp)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if out.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host library build failed:\n{out.stdout}")
+    _publish(tmp, HOST_LIB_PATH, HOST_STAMP_PATH, cmd_key, tag)
+    host_build_seconds = time.perf_counter() - t0
+    return HOST_LIB_PATH
+
+
+def host_library() -> ctypes.CDLL:
+    """The loaded host library, built first if needed."""
+    global _host_lib
+    if _host_lib is None:
+        _host_lib = ctypes.CDLL(str(build_host()))
+    return _host_lib

@@ -424,6 +424,67 @@ def test_kmin2_matches_plain(cuda, exclude_self):
     assert bool((m2 >= m1).all())
 
 
+def _kmin2_ragged(frames, n, m, d, seed, device):
+    """Frames of y with a different count of valid columns each (all, all
+    but 3, one, none, half, two, ...), the padding at the end on a point of
+    its own where three rows of x sit, exact duplicates among the valid
+    columns; x spiral-like uniform points."""
+    rng = np.random.default_rng(seed)
+    y = rng.uniform(size=(frames, m, d))
+    my = np.zeros((frames, m))
+    for f in range(frames):
+        valid = [m, m - 3, 1, 0, m // 2, 2][f % 6]
+        my[f, :valid] = 1.0
+        y[f, valid:] = -1.0
+        y[f, valid // 2: valid // 2 + valid // 8] = y[f, :valid // 8]
+    x = rng.uniform(size=(frames, n, d))
+    x[:, :3] = -1.0
+    return (torch.tensor(t, dtype=torch.float32, device=device) for t in (x, y, my))
+
+
+def _kmin2_hold(K2, x, y, my, exclude_self):
+    """kmin2 against its float64 plain version: +inf where it has +inf, each
+    finite distance within one rounding of a square (relative 1e-6); two
+    calls agree bit for bit."""
+    m1, m2 = K2.kmin2(x, y, my, exclude_self)
+    again = K2.kmin2(x, y, my, exclude_self)
+    r1, r2 = K2.kmin2_reference(x.double(), y.double(), my.double(), exclude_self)
+    for got, ref in ((m1, r1), (m2, r2)):
+        assert torch.equal(torch.isinf(got), torch.isinf(ref))
+        fin = torch.isfinite(ref)
+        torch.testing.assert_close(got.double()[fin], ref[fin], rtol=1e-6, atol=0)
+    assert torch.equal(m1, again[0]) and torch.equal(m2, again[1])
+    return m1, m2
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+@pytest.mark.parametrize("d", [2, 3])
+def test_kmin2_ragged_masks(cuda, d, exclude_self):
+    """Frames with ragged masks (the padding at the end, as decim support
+    gives), fewer than two valid columns, ties, rows on the padding's place;
+    12 frames of 3,001 x 1,500 (several tiles of columns) and one frame of
+    65,536 points with exclude_self and a masked tail."""
+    from difficp_torch.ops import kmin2 as K2
+
+    x, y, my = _kmin2_ragged(12, 3001, 1500, d, seed=d, device=cuda)
+    if exclude_self:
+        x = y
+    m1, m2 = _kmin2_hold(K2, x, y, my, exclude_self)
+    assert bool(torch.isinf(m2[3]).all()) and bool(torch.isinf(m1[3]).all())  # none valid
+    assert bool(torch.isinf(m2[2]).all())  # one valid
+    assert bool((m1 == m2).any())
+    if not exclude_self:
+        assert bool((m1[:, :3][my[:, -1] == 0] > 0).all())  # the padding never wins
+        return
+    rng = np.random.default_rng(11 + d)
+    one = torch.tensor(rng.uniform(size=(1, 65536, d)), dtype=torch.float32, device=cuda)
+    one[0, 1000:1100] = one[0, :100]  # duplicates: distance 0 to another point
+    mask = torch.ones((1, 65536), device=cuda)
+    mask[0, -777:] = 0.0
+    n1, _ = _kmin2_hold(K2, one, one, mask, True)
+    assert bool((n1[0, :100] == 0).all())
+
+
 def test_ext_launch_counters(cuda):
     """One loss+grad of an Euler shoot with external points on the kernel
     route (nt = 4): per step one self and one ext forward, one self

@@ -184,18 +184,12 @@ def test_icp_two_set_matches_jax():
 
 
 def test_unported_routes_raise():
-    """What the port does not run yet raises, naming its later slice: decim
-    support, affine types, the {"set", "C"} atlas init, lambda "auto"; and
+    """What the port does not run yet raises, naming its later slice: affine
+    types, the {"set", "C"} atlas init, lambda "auto"; and
     backward_precision, which has nothing to choose here."""
-    psr = _torch_psr()
-    with pytest.raises(NotImplementedError, match="decim"):
-        psr.set_support_scheme("decim", rho=1.0)
     base = dict(GMM_parameters={"sigma": 0.1, "optimize_sigma": True}, printstuff=False,
                 device="cpu")
     diffeo = {"type": "diffeomorphic", "sigma_LDDMM": 0.2, "lambda_LDDMM": 500.0}
-    with pytest.raises(NotImplementedError, match="decim"):
-        t_icp_two_set(X, SPIRAL["x0"], registration_parameters=diffeo,
-                      numerical_options={"support_LDDMM": {"scheme": "decim"}}, **base)
     with pytest.raises(NotImplementedError):
         t_icp_two_set(X, SPIRAL["x0"], registration_parameters={"type": "rigid"}, **base)
     with pytest.raises(NotImplementedError, match="auto"):
