@@ -110,6 +110,26 @@ Phases, each printing JSON lines with its seconds:
                  step from the momenta DiffPSR.initialize_a0 gives (zero
                  momenta carry the gradcomponent field, whose shoot diverges
                  on these clouds).
+ 24. multi structure path  examples/run_full.py's three-structure atlas at
+                 full width: 10 frames of a spiral, a circle and a bar of
+                 21,000-22,699 points each drawn on the card (random_p's
+                 rff_cg sampler, then a dense shoot a frame; its CG residual
+                 held), icp_atlas with {"set": 0, "C": 20} (gmm.fit a
+                 structure), grid support, 2 outer iterations: seconds, peak
+                 memory, launches per loss+grad, the sigmas; then each kernel
+                 on the path's own inputs (padded rows inside the row axis)
+                 against its float64 plain version;
+ 25. affine atlas path  the grid main path's frames through icp_atlas with
+                 {"set": 0, "C": 20} for rigid, similarity and general
+                 affine, 3 outer iterations each (no kernel: the EM and the
+                 batched closed-form fits), det(M) ranges; AffinePSR.run(3)
+                 against 3 stepwise iterations within 5e-3;
+ 26. auto lambda path  icp_two_set with lambda_LDDMM "auto" on two spiral
+                 frames of 16,384 points (the calibration's Ralston shoots
+                 on rows #1 and #4), 2 outer iterations on grid support; the
+                 calibration against the self kernels' float32 plain versions
+                 from the same start momenta (h0_ref, lambda), and v2p's
+                 start on the plain versions with both starts' residuals.
 Each main path is driven with the launch counters set to 0 just before it
 and read just after; the paths print the free energies of earlier runs bit
 for bit or fail, and the eta = 0 paths stay within 5e-3 of those the direct
@@ -268,6 +288,29 @@ RING_STEP = dict(em_iters=5, reg_nmax=1, reg_inner=20, reg_ls=25, tol=1e-3)
 # is off by ~1e-3 against float64 there), and those two are printed only.
 TOL_RING_FE = 1e-2
 TOL_RING_START = (1e-4, 1e-2)
+# the multi-structure path: examples/run_full.py's generative model and atlas
+# (sigma_GMM 0.02, sigma_LDDMM 0.15, lambda 2e2 for the frames; the atlas at
+# sigma_LDDMM 0.2, lambda 2e2, grid rho = 1) with each structure's counts
+# widened so that a frame holds about 65,536 points
+MULTI_FRAMES = 10
+MULTI_N_BOUNDS = (21000, 22700)
+MULTI_SIGMA = 0.2
+# random_p's CG stops where its recursive float32 residual is 1e-6 of its
+# right-hand side; the true residual of its last iterate, recomputed in
+# float64 by the plain version, has drifted from that by the rounding of
+# every step: held within 1e-4.  The phase prints it also with the kernel's
+# own float32 K b: the two agree (PERF.md), so the gap is the iterate's, not
+# one matvec's
+TOL_CG_RESIDUAL = 1e-4
+# the auto-calibrated registration: two spiral frames of AUTO_N points (the
+# calibration's dense Ralston shoot at 268M pairs).  Its start energy h0_ref
+# and its lambda = l_ref / H(x, p0) are held within TOL_CALIB of float64 H at
+# the same momenta, relative to themselves.  v2p's momenta there make K a0
+# some 5e5 times smaller than K |a0|, below what any float32 sum resolves to
+# 1e-4: the kernels (held at the terms' scale) and the float32 plain versions
+# both give an H some 2% from float64's (PERF.md)
+AUTO_N = 16384
+TOL_CALIB = 5e-2
 
 
 def emit(obj):
@@ -867,34 +910,13 @@ def phase_check_ext(re, k2):
     return worst
 
 
-def hold_path_kernels(phase, path, rs, re, k2, x, mx, q, p, mq, cov, seed):
-    """Each eta = 0 kernel of a registration path with external points, on
-    the path's own inputs, against its float64 plain version: the support's
-    self forward and backward, the ext forward and its two backward kernels
-    (data points x, mx; support q, p, mq; random cotangents from ``seed``;
-    logdet on, and off as the path runs them, with a zero dcost cotangent
-    for the self backward; the support's and the data rows' orders computed
-    once, as the path does) within TOL_FWD and TOL_BWD, and kmin2 over the
-    coverage pass's frames ``cov`` = (x, y, mask_y) within TOL_KMIN2 of each
-    distance, +inf where the plain version has it.  Fails the run on any
-    miss.  Returns the worst errors {kernel: [rel, abs]}, the cotangents
-    (gx, gc, gv, gw) and the orders."""
-    import torch
-
-    k, n, d = x.shape
-    m = q.shape[1]
-    sig = GRID_SIGMA
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    gx = torch.randn(x.shape, generator=g, device="cuda")
-    gc = torch.randn((k,), generator=g, device="cuda")
-    gv = torch.randn(q.shape, generator=g, device="cuda")
-    gw = torch.randn(q.shape, generator=g, device="cuda")
-    order = rs.row_order(q, mq, sig)
-    xorder = re.data_order(x, mx, sig)
-    shape = {"path": path, "frames": k, "N": n, "M": m, "d": d,
-             "valid_M": [int(c) for c in mq.sum(-1).tolist()]}
-    worst = {}
-
+def path_holds(phase, path, shape, worst):
+    """The hold functions of a kernel held on a path's own inputs: ``hold``
+    emits a record (with ``shape``), fails the run where rel > tol and keeps
+    the worst errors in ``worst``; ``hold_sums`` takes the worst error of a
+    kernel's outputs against float64, relative to each output's largest
+    entry or to that of its ``scale`` (and of each frame's dcost against the
+    sum of its terms' magnitudes)."""
     def hold(name, rel, ab, tol, **rec):
         ok = rel <= tol
         emit({"phase": phase, "kernel": name, **shape, **rec, "rel_err": rel,
@@ -905,9 +927,15 @@ def hold_path_kernels(phase, path, rs, re, k2, x, mx, q, p, mq, cov, seed):
         old = worst.get(name, (0.0, 0.0))
         worst[name] = [max(old[0], rel), max(old[1], ab)]
 
-    def hold_sums(name, got, ref, tol, dcost=None, **rec):
+    def hold_sums(name, got, ref, tol, dcost=None, scale=None, **rec):
         rel = max(rel_err(a, r) for a, r in zip(got, ref))
         ab = max(abs_err(a, r) for a, r in zip(got, ref))
+        if scale is not None:
+            # relative to the largest entry of each output's ``scale`` instead
+            rec["rel_err_to_largest_output"] = rel
+            rec["scale_over_largest_output"] = [float(m.abs().max() / r.abs().max())
+                                                for r, m in zip(ref, scale)]
+            rel = max(abs_err(a, r) / float(m.abs().max()) for a, r, m in zip(got, ref, scale))
         if dcost is not None:
             # each frame's dcost against the sum of its terms' magnitudes
             dc, rdc = dcost
@@ -915,6 +943,74 @@ def hold_path_kernels(phase, path, rs, re, k2, x, mx, q, p, mq, cov, seed):
                                          / rdc.abs().sum(-1).max().clamp_min(1e-300))
             rel = max(rel, rec["dcost_rel_err"])
         hold(name, rel, ab, tol, **rec)
+    return hold, hold_sums
+
+
+def hold_self_kernels(phase, path, rs, q, p, mq, order, seed, sig):
+    """The eta = 0 self forward and backward on a path's own support (q, p,
+    mq, its rows' order), logdet off as the classic model runs them, against
+    their float64 plain versions within TOL_FWD and TOL_BWD (random
+    cotangents of v and w from ``seed``, a zero dcost cotangent), each error
+    relative to the largest entry of the same sums in float64 with the
+    momenta's and the cotangents' signs dropped.  Momenta that cancel (v2p's
+    for a small field above the pair limit) leave outputs far below their
+    terms, which no float32 sum resolves: the error relative to the largest
+    output is printed beside it, with the ratio of the two scales.  A wrong
+    pair term moves the sums by a share of the held scale.  Fails the run on
+    any miss.
+    Returns the worst errors {kernel: [rel, abs]} and the float64 v = K p."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gv = torch.randn(q.shape, generator=g, device="cuda")
+    gw = torch.randn(q.shape, generator=g, device="cuda")
+    zero = torch.zeros(q.shape[:1], device="cuda")
+    shape = {"path": path, "frames": q.shape[0], "M": q.shape[1], "d": q.shape[2]}
+    worst = {}
+    hold, hold_sums = path_holds(phase, path, shape, worst)
+    q8, p8, mq8, gv8, gw8, zero8 = (t.double() for t in (q, p, mq, gv, gw, zero))
+    got = rs.rhs_self_fwd(q, p, mq, sig, False, order=order)
+    ref = rs.rhs_self_fwd_reference(q8, p8, mq8, sig, False)
+    mag = rs.rhs_self_fwd_reference(q8, p8.abs(), mq8, sig, False)
+    hold_sums("rhs_self_fwd", got[:2], ref[:2], TOL_FWD, scale=mag[:2], withlogdet=False)
+    v8 = ref[0]
+    del got, ref, mag
+    mag = rs.rhs_self_bwd_reference(q8, p8.abs(), mq8, gv8.abs(), gw8.abs(), zero8, sig, False)
+    hold_sums("rhs_self_bwd", rs.rhs_self_bwd(q, p, mq, gv, gw, zero, sig, False, order),
+              rs.rhs_self_bwd_reference(q8, p8, mq8, gv8, gw8, zero8, sig, False),
+              TOL_BWD, scale=mag, withlogdet=False)
+    del mag
+    torch.cuda.empty_cache()
+    return worst, v8
+
+
+def hold_path_kernels(phase, path, rs, re, k2, x, mx, q, p, mq, cov, seed, sig=GRID_SIGMA):
+    """Each eta = 0 kernel of a registration path with external points, on
+    the path's own inputs, against its float64 plain version: the support's
+    self forward and backward, the ext forward and its two backward kernels
+    (data points x, mx; support q, p, mq; sigma ``sig``; random cotangents
+    from ``seed``; logdet on, and off as the path runs them, with a zero dcost cotangent
+    for the self backward; the support's and the data rows' orders computed
+    once, as the path does) within TOL_FWD and TOL_BWD, and kmin2 over the
+    coverage pass's frames ``cov`` = (x, y, mask_y) within TOL_KMIN2 of each
+    distance, +inf where the plain version has it.  Fails the run on any
+    miss.  Returns the worst errors {kernel: [rel, abs]}, the cotangents
+    (gx, gc, gv, gw) and the orders."""
+    import torch
+
+    k, n, d = x.shape
+    m = q.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gx = torch.randn(x.shape, generator=g, device="cuda")
+    gc = torch.randn((k,), generator=g, device="cuda")
+    gv = torch.randn(q.shape, generator=g, device="cuda")
+    gw = torch.randn(q.shape, generator=g, device="cuda")
+    order = rs.row_order(q, mq, sig)
+    xorder = re.data_order(x, mx, sig)
+    shape = {"path": path, "frames": k, "N": n, "M": m, "d": d,
+             "valid_M": [int(c) for c in mq.sum(-1).tolist()]}
+    worst = {}
+    hold, hold_sums = path_holds(phase, path, shape, worst)
 
     x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8 = (
         t.double() for t in (x, mx, q, p, mq, gx, gc, gv, gw))
@@ -2637,6 +2733,313 @@ def phase_ring_path(phase, n, version, steps, counters, kernel, start_tol=None):
     return rec
 
 
+def iteration_marks():
+    """A callback for the APIs that records the card's time (synchronized)
+    at each call, with its after-GMM flag, and the free energy after each
+    registration step."""
+    import torch
+
+    marks, fes = [], []
+
+    def callback(psr, after_gmm):
+        torch.cuda.synchronize()
+        marks.append((after_gmm, time.perf_counter()))
+        if not after_gmm:
+            fes.append(psr.FE)
+    return marks, fes, callback
+
+
+def iteration_seconds(marks):
+    """Seconds of each outer iteration from iteration_marks: the first from
+    its after-GMM mark (its GMM step is skipped or timed apart) to its end,
+    each later one from the end of the one before."""
+    ends = [t for after, t in marks if not after]
+    first = next(t for after, t in marks if after)
+    return [b - a for a, b in zip([first] + ends[:-1], ends)]
+
+
+def phase_multi_structure_path(counters, orders, icp_atlas):
+    """run_full.py's three-structure atlas at full width: 10 frames of a
+    spiral, a circle and a bar of 21,000-22,699 points each (about 65,536 a
+    frame), drawn on the card (random_p "ridge", which becomes rff_cg above
+    the pair limit, then a dense shoot), registered by icp_atlas with a GMM
+    of 20 components fitted to each structure of frame 0, grid support
+    (rho = 1) and 2 outer iterations.  Structure 0's and 1's padded rows lie
+    inside the row axis.  Holds random_p's CG residual, the FE oracle, and
+    each kernel of the path on its own inputs (hold_path_kernels)."""
+    import torch
+    from difficp_torch.examples import run_full
+    from difficp_torch.models import lddmm
+    from difficp_torch.ops import backend
+    from difficp_torch.ops import kmin2 as k2
+    from difficp_torch.ops import rhs_ext as re
+    from difficp_torch.ops import rhs_self as rs
+
+    reset(*counters.values(), orders)
+    solves, solve = [], lddmm.kridge_solve_cg
+
+    def recording(q, u, sigma, **kw):
+        sol = solve(q, u, sigma, **kw)
+        solves.append((q, u, sol, sigma, kw["alpha"]))
+        return sol
+
+    t0 = time.perf_counter()
+    lddmm.kridge_solve_cg = recording
+    try:
+        frames = run_full.generate_multi_structure_frames(
+            torch.Generator(device="cuda").manual_seed(0), k=MULTI_FRAMES,
+            n_bounds=MULTI_N_BOUNDS)
+    finally:
+        lddmm.kridge_solve_cg = solve
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    setup_launches = {k: v for k, v in flat_counts(counters).items() if v}
+    with torch.no_grad():
+        # (K + alpha I) b = u, b the solution before its 1 / sqrt(lambda), in
+        # float64 by the self forward's plain version (held), and with the
+        # kernel's own float32 K b, as the CG's matvec computes it (printed:
+        # the gap between the two is the matvec's rounding, not the CG's)
+        residual, residual_kernel = 0.0, 0.0
+        for q, u, b, sig, alpha in solves:
+            q8, b8, u8 = q.double(), b.double(), u.double()
+            ones = torch.ones_like(q[..., 0])
+            kb = rs.rhs_self_fwd_reference(q8, b8, ones.double(), sig, False)[0]
+            residual = max(residual, float((kb + alpha * b8 - u8).norm() / u8.norm()))
+            kb = rs.rhs_self_fwd(q, b, ones, sig, False)[0].double()
+            residual_kernel = max(residual_kernel,
+                                  float((kb + alpha * b8 - u8).norm() / u8.norm()))
+    n_solves = len(solves)
+    del solves
+    counts = [[int(a.shape[0]) for a in fr] for fr in frames]
+
+    reset(*counters.values(), orders)
+    torch.cuda.reset_peak_memory_stats()
+    marks, fes, callback = iteration_marks()
+    t1 = time.perf_counter()
+    try:
+        psr, _ = icp_atlas(
+            frames, {"init_components": {"set": 0, "C": 20}, "optimize_weights": True},
+            {"type": "diffeomorphic", "lambda_LDDMM": 2e2, "sigma_LDDMM": MULTI_SIGMA},
+            {"support_LDDMM": {"scheme": "grid", "rho": 1.0}, "computversion": "pallas"},
+            {"max_iterations": 2}, callback_function=callback, printstuff=False,
+            device="cuda")
+    finally:
+        backend.set_backend(None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    flat = {k: v for k, v in flat_counts(counters).items() if k in ETA0_KERNELS}
+    evals = flat["rhs_self_bwd"] / psr.lcfg.nt
+    per_eval = {k: v / max(evals, 1) for k, v in flat.items() if k != "kmin2"}
+    emit({"phase": "multi_structure_path", "frames": MULTI_FRAMES, "structures": psr.S,
+          "points_per_structure": counts, "points_per_frame": [sum(c) for c in counts],
+          "padded_width": int(psr.x0.shape[1]), "grid_M": int(psr.q0.shape[1]),
+          "setup_seconds": setup, "setup_launches": setup_launches,
+          "cg_solves": n_solves, "cg_residual": residual, "cg_residual_tol": TOL_CG_RESIDUAL,
+          "cg_residual_kernel_matvec": residual_kernel,
+          "registration_setup_seconds": next(t for a, t in marks if a) - t1,
+          "seconds_per_outer_iteration": iteration_seconds(marks), "seconds": seconds,
+          "FE_sequence": fes, "fe_increase_events": psr.fe_increase_events,
+          "sigmas": [float(g.sigma) for g in psr.gmm], "launches": flat,
+          "loss_grad_evals": evals, "launches_per_loss_grad": per_eval,
+          "uncovered": psr.last_reg_stats["uncovered"].cpu().tolist(),
+          "max_memory_allocated_bytes": peak})
+    if not all(v > 0 for v in flat.values()):
+        fail("multi_structure_path", f"a kernel of the path never launched: {flat}")
+    if not residual <= TOL_CG_RESIDUAL:
+        fail("multi_structure_path", f"random_p's CG residual {residual}")
+    if not (all(map(math.isfinite, fes)) and monotone(fes) and psr.fe_increase_events == 0):
+        fail("multi_structure_path", "free energy not finite or not monotone")
+    if psr.S != 3 or not bool(torch.isfinite(psr.x1).all()):
+        fail("multi_structure_path", "warped points are not finite")
+    inner = psr.xmask[:, :psr.slices[-1][0]] == 0
+    if not bool(inner.any()):
+        fail("multi_structure_path", "no padded row inside the row axis")
+
+    nx, m, d = psr.x0.shape[1], psr.q0.shape[1], psr.D
+    a0 = psr.a0.detach()
+    with torch.no_grad():
+        _, traj = lddmm.shoot(psr.lcfg, psr.q0, a0, psr.x0, psr.qmask, psr.xmask,
+                              save_traj=True)
+    cov = [traj.x.reshape(-1, nx, d).contiguous(), traj.q.reshape(-1, m, d).contiguous(),
+           psr.qmask.expand(traj.q.shape[:-1]).reshape(-1, m).contiguous()]
+    del traj
+    worst, _, _ = hold_path_kernels("check_multi_structure_path", "multi_structure", rs, re,
+                                    k2, psr.x0, psr.xmask, psr.q0, a0, psr.qmask, cov,
+                                    seed=7, sig=MULTI_SIGMA)
+    del cov, psr
+    torch.cuda.empty_cache()
+    return flat, worst
+
+
+def phase_affine_atlas_path(counters, icp_atlas):
+    """The grid main path's frames (10 x 65,536 points) through icp_atlas
+    with a GMM of 20 components fitted to frame 0, 3 outer iterations each
+    for "rigid", "similarity" and "general_affine" (the EM over 655,360 x 20
+    pairs, the closed-form fits batched over the frames); then AffinePSR.run(3)
+    against 3 stepwise iterations for "similarity", FE within TOL_ROUTE_FE
+    (tests/test_api.py:219-245)."""
+    import torch
+    from difficp_torch.models import affine, gmm
+    from difficp_torch.models.psr import AffinePSR
+
+    frames = grid_frames(10, 65536)
+    reset(*counters.values())
+    for reg_type in ("rigid", "similarity", "general_affine"):
+        marks, fes, callback = iteration_marks()
+        t0 = time.perf_counter()
+        psr, evol = icp_atlas(frames, {"init_components": {"set": 0, "C": 20}},
+                              {"type": reg_type}, optim_options={"max_iterations": 3},
+                              callback_function=callback, printstuff=False, device="cuda")
+        torch.cuda.synchronize()
+        det = torch.linalg.det(psr.M.double())
+        emit({"phase": "affine_atlas_path", "type": reg_type, "frames": 10, "n_points": 65536,
+              "setup_seconds": next(t for a, t in marks if a) - t0,
+              "seconds_per_outer_iteration": iteration_seconds(marks),
+              "seconds": time.perf_counter() - t0, "FE_sequence": fes,
+              "fe_increase_events": psr.fe_increase_events,
+              "det_M_range": [float(det.min()), float(det.max())],
+              "sigma": float(psr.gmm[0].sigma)})
+        if not (len(evol["M"]) == len(fes) and all(map(math.isfinite, fes)) and monotone(fes)
+                and psr.fe_increase_events == 0 and bool(torch.isfinite(psr.M).all())):
+            fail("affine_atlas_path", f"{reg_type}: free energy or fit not finite or not monotone")
+
+    st, cfg = gmm.fit(torch.as_tensor(frames[0], device="cuda"), 20,
+                      torch.Generator(device="cuda").manual_seed(0))
+    cfg = cfg._replace(optimize_mu=True, optimize_sigma=True, optimize_w=True)
+
+    def build():
+        psr = AffinePSR(frames, st, cfg, affine.AffineConfig(version="similarity"),
+                        device="cuda")
+        psr.printstuff = False
+        return psr
+
+    t0 = time.perf_counter()
+    step = build()
+    for _ in range(3):
+        step.GMM_opt(max_iterations=10, tol=1e-3)
+        step.Reg_opt()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fused = build()
+    fused_fes = fused.run(3, max_em=10, em_tol=1e-3)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rel = abs(fused.FE - step.FE) / abs(step.FE)
+    launches = {k: v for k, v in flat_counts(counters).items() if v}
+    emit({"phase": "affine_fused_run", "type": "similarity", "FE_stepwise": step.FE,
+          "FE_fused": fused.FE, "fused_FE_sequence": fused_fes.tolist(), "rel_diff": rel,
+          "tol": TOL_ROUTE_FE, "stepwise_seconds": t1 - t0, "fused_seconds": t2 - t1,
+          "fe_increase_events": [step.fe_increase_events, fused.fe_increase_events],
+          "kernel_launches": launches})
+    if rel > TOL_ROUTE_FE or step.fe_increase_events or fused.fe_increase_events:
+        fail("affine_fused_run", "AffinePSR.run and its steps disagree or the FE rose")
+    torch.cuda.empty_cache()
+
+
+def phase_auto_lambda_path(counters, orders, icp_two_set):
+    """icp_two_set with lambda_LDDMM = "auto" on two spiral frames of AUTO_N
+    points: the calibration (a general-affine ICP with xB's points as GMM
+    centroids, v2p's CG ridge solve, the dense Ralston shoots of its L-BFGS at
+    AUTO_N^2 pairs: rows #1 and #4), then the registration on grid support,
+    2 outer iterations.  Holds lambda finite and > 0, the FE oracle, rows #1
+    and #4 on the calibration's own start (x, a0) against their float64
+    plain versions (hold_self_kernels), and h0_ref = H(x, a0) and lambda
+    within TOL_CALIB of float64 H and of l_ref over float64 H(x, p0) (l_ref
+    comes from the affine ICP, which runs no kernel).
+    Above the pair limit v2p's start is an unconverged CG (alpha = 1e-4;
+    ROADMAP section 3), and the L-BFGS on the exponential loss takes no step
+    from it (p0 == a0, printed as "lbfgs_moved"): lambda is then
+    l_ref / H(x, a0), which only the forward kernel reaches; the backward
+    kernel is held on the start itself."""
+    import torch
+    from difficp_torch.models import calibration, lddmm
+    from difficp_torch.ops import rhs_self as rs
+
+    xa, xb = grid_frames(2, AUTO_N)
+    parts = {}
+    orig = calibration.lambda_from_reference
+    start_momenta, optimize = calibration.start_momenta, lddmm.optimize
+
+    def recording_start(*args):
+        parts["start"] = start_momenta(*args)
+        return parts["start"]
+
+    def recording_optimize(*args, **kw):
+        res = optimize(*args, **kw)
+        parts["p0"] = res.p0
+        return res
+
+    def recording(ref, sigma):
+        # the start and the optimum of the calibration only (the
+        # registration after it runs lddmm.optimize too)
+        parts["ref"] = ref
+        calibration.start_momenta, lddmm.optimize = recording_start, recording_optimize
+        try:
+            parts["out"] = orig(ref, sigma)
+        finally:
+            calibration.start_momenta, lddmm.optimize = start_momenta, optimize
+        torch.cuda.synchronize()
+        parts["end"] = time.perf_counter()
+        parts["launches"] = {k: v for k, v in flat_counts(counters).items() if v}
+        return parts["out"]
+
+    reset(*counters.values(), orders)
+    t0 = time.perf_counter()
+    calibration.lambda_from_reference = recording
+    try:
+        psr, _ = icp_two_set(
+            xa, xb, {"sigma": 0.1, "optimize_sigma": True, "outlier_weight": None},
+            {"type": "diffeomorphic", "lambda_LDDMM": "auto", "sigma_LDDMM": 0.2},
+            optim_options={"max_iterations": 2}, printstuff=False, device="cuda")
+    finally:
+        calibration.lambda_from_reference = orig
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lam, out, ref = psr.lcfg.lambd, parts["out"], parts["ref"]
+    _, a0, _ = parts["start"]
+    p0 = parts["p0"].detach()
+    moved = not torch.equal(p0, a0)
+
+    q = ref.x[None]
+    mq = torch.ones_like(q[..., 0])
+    worst, v8 = hold_self_kernels("check_auto_lambda_path", "auto_lambda", rs, q, a0, mq,
+                                  rs.row_order(q, mq, 0.2), seed=11, sig=0.2)
+    with torch.no_grad():
+        a8, u8 = a0.double(), (ref.y - ref.x)[None].double()
+        h0 = 0.5 * float((a8 * v8).sum())
+        # v2p's ridge residual ||(K + alpha I) a0 - (y - x)|| / ||y - x||
+        residual = float((v8 + 1e-4 * a8 - u8).norm() / u8.norm())
+        deformation = h0
+        if moved:
+            p8 = p0.double()
+            deformation = 0.5 * float((p8 * rs.rhs_self_fwd_reference(
+                q.double(), p8, mq.double(), 0.2, False)[0]).sum())
+    del v8, a8, u8
+    rel_h0 = abs(out.h0_ref - h0) / abs(h0)
+    lam64 = out.l_ref / deformation
+    rel_lam = abs(out.lam - lam64) / abs(lam64)
+    emit({"phase": "auto_lambda_path", "n_points": AUTO_N, "lambda": lam,
+          "l_ref": out.l_ref, "h0_ref": out.h0_ref, "deformation": out.deformation,
+          "lbfgs_moved": moved, "calibration_seconds": parts["end"] - t0, "seconds": seconds,
+          "calibration_launches": parts["launches"], "FE": psr.FE,
+          "fe_increase_events": psr.fe_increase_events, "grid_M": int(psr.q0.shape[1]),
+          "float64": {"h0_ref": h0, "deformation": deformation, "lambda": lam64},
+          "h0_ref_rel_diff": rel_h0, "lambda_rel_diff": rel_lam, "tol": TOL_CALIB,
+          "v2p_cg_residual": residual})
+    if not (math.isfinite(lam) and lam > 0 and math.isfinite(psr.FE)
+            and psr.fe_increase_events == 0):
+        fail("auto_lambda_path", f"lambda {lam} or the registration's FE is not sound")
+    if not all(parts["launches"].get(k, 0) > 0 for k in ("rhs_self_fwd", "rhs_self_bwd")):
+        fail("auto_lambda_path", f"the calibration did not run rows #1 and #4: "
+                                 f"{parts['launches']}")
+    if not (rel_h0 <= TOL_CALIB and rel_lam <= TOL_CALIB):
+        fail("auto_lambda_path", "the calibration disagrees with float64")
+    del psr
+    torch.cuda.empty_cache()
+    return parts["launches"], worst
+
+
 def main():
     import torch
 
@@ -2750,6 +3153,21 @@ def main():
     ring_eta = phase_ring_path("ring_eta_path", RING_ETA_N, "logdet", 1, counters,
                                "rhs_cross_fwd_eta")
 
+    # the affine, GMM-fit, auto-lambda and multi-structure slice
+    t0 = time.perf_counter()
+    multi_launches, worst_multi = phase_multi_structure_path(counters, rs.orders, icp_atlas)
+    for name, (rel, ab) in worst_multi.items():
+        worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
+    emit({"phase": "multi_structure_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_affine_atlas_path(counters, icp_atlas)
+    emit({"phase": "affine_atlas_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    auto_launches, worst_auto = phase_auto_lambda_path(counters, rs.orders, icp_two_set)
+    for name, (rel, ab) in worst_auto.items():
+        worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
+    emit({"phase": "auto_lambda_done", "seconds": time.perf_counter() - t0})
+
     pr = "difficp_tpu/ops/pallas_reductions.py"
     sources = {"rhs_self": "difficp_torch/csrc/rhs_self.cu",
                "rhs_ext": "difficp_torch/csrc/rhs_ext.cu",
@@ -2767,7 +3185,10 @@ def main():
     for name, (source, rep, also) in replaces.items():
         t = timing[name]
         launches_by_path = {"grid_main_path": grid_launches[name],
-                            "decim_main_path": decim_launches[name]}
+                            "decim_main_path": decim_launches[name],
+                            "multi_structure_path": multi_launches[name]}
+        if name in auto_launches:
+            launches_by_path["auto_lambda_path"] = auto_launches[name]
         if name in dense_launches:
             launches_by_path["dense_main_path"] = dense_launches[name]
         entry = {

@@ -8,6 +8,7 @@ from typing import Optional
 
 import numpy as np
 
+from difficp_torch.models import affine as affine_mod
 from difficp_torch.models import gmm as gmm_mod
 from difficp_torch.models import lddmm as lddmm_mod
 from difficp_torch.ops import backend as backend_mod
@@ -79,6 +80,10 @@ def build_lddmm_config(registration_parameters, numerical_options, lam) -> lddmm
     )
 
 
+def build_affine_config(reg_type: str) -> affine_mod.AffineConfig:
+    return affine_mod.AffineConfig(version=reg_type, withlogdet=True, with_t=True)
+
+
 def gmm_from_two_set_params(x_b, gmm_parameters: dict, device):
     """GMM with mu fixed at xB, per ICP_two_set semantics
     (ICP_two_set.py:175-187)."""
@@ -96,3 +101,14 @@ def gmm_from_two_set_params(x_b, gmm_parameters: dict, device):
         optimize_eta0=gmm_parameters.get("outlier_weight") == "optimize",
     )
     return state, cfg
+
+
+def snapshot_registration(psr, evol: dict, is_diff: bool):
+    """Append this iteration's registration parameters to ``evol``: the
+    momenta a0, or M and t (ICP_two_set.py:233-240), as numpy arrays."""
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    if is_diff:
+        evol["a0"].append(host(psr.a0))
+    else:
+        evol["M"].append(host(psr.M))
+        evol["t"].append(host(psr.t))

@@ -5,11 +5,14 @@ Point set xA is registered onto xB, whose points are the fixed centroids of a
 GMM; the GMM sigma (and optionally an outlier weight) are optimized by EM
 while the registration is optimized per alternation.
 
-Ported: the diffeomorphic branch with dense, decim, grid (the default) or
-custom ``support_LDDMM``.  Affine types and ``lambda_LDDMM="auto"`` raise
-``NotImplementedError`` until their modules are ported.
+registration_parameters["type"] is "rigid", "similarity", "general_affine"
+(closed-form fits, ``AffinePSR``) or "diffeomorphic" with dense, decim, grid
+(the default) or custom ``support_LDDMM``; ``lambda_LDDMM="auto"`` calibrates
+lambda from an affine registration of xA onto xB's points
+(``models/calibration.py``).
 
-:return: (PSR object, evol dict with per-iteration a0 / GMM snapshots)
+:return: (PSR object, evol dict with per-iteration a0 (or M and t) and GMM
+    snapshots)
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 
 from difficp_torch.api import common
 from difficp_torch.models import gmm as gmm_mod
-from difficp_torch.models.psr import DiffPSR
+from difficp_torch.models.psr import AffinePSR, DiffPSR
 from difficp_torch.utils.spec import resolve_device
 
 
@@ -39,11 +42,8 @@ def icp_two_set(
     if reg_type not in common.ALLOWED_REG_TYPES:
         raise ValueError(f"registration_parameters['type'] should be one of "
                          f"{common.ALLOWED_REG_TYPES}")
-    if reg_type != "diffeomorphic":
-        raise NotImplementedError(
-            f"{reg_type!r} registration needs models/affine.py, which is not "
-            "ported yet")
-    if not {"lambda_LDDMM", "sigma_LDDMM"}.issubset(registration_parameters):
+    is_diff = reg_type == "diffeomorphic"
+    if is_diff and not {"lambda_LDDMM", "sigma_LDDMM"}.issubset(registration_parameters):
         raise ValueError("diffeomorphic registration needs lambda_LDDMM and sigma_LDDMM")
     device = resolve_device(device)
 
@@ -68,16 +68,26 @@ def icp_two_set(
     supp = numerical_options["support_LDDMM"]
 
     x_a = np.asarray(x_a, np.float32)
-    lam = registration_parameters["lambda_LDDMM"]
-    if lam == "auto":
-        raise NotImplementedError(
-            "lambda_LDDMM='auto' needs models/calibration.py, which is not "
-            "ported yet")
-    lcfg = common.build_lddmm_config(registration_parameters, numerical_options, lam)
-    psr = DiffPSR(x_a, gmm_state, gmm_cfg, lcfg, device=device)
-    if supp["scheme"] != "dense":
-        psr.set_support_scheme(**supp)
-    evol = {"a0": [], "GMMi": []}
+    if is_diff:
+        lam = registration_parameters["lambda_LDDMM"]
+        if lam == "auto":
+            from difficp_torch.models import calibration
+
+            if printstuff:
+                print("Automatic calibration of lambda_LDDMM...")
+            lam = calibration.calibrate_lambda_lddmm(
+                x_a, gmm_state.mu, registration_parameters["sigma_LDDMM"], device=device)
+            if printstuff:
+                print(f"    lambda_LDDMM = {lam}")
+        lcfg = common.build_lddmm_config(registration_parameters, numerical_options, lam)
+        psr = DiffPSR(x_a, gmm_state, gmm_cfg, lcfg, device=device)
+        if supp["scheme"] != "dense":
+            psr.set_support_scheme(**supp)
+        evol = {"a0": [], "GMMi": []}
+    else:
+        psr = AffinePSR(x_a, gmm_state, gmm_cfg, common.build_affine_config(reg_type),
+                        device=device)
+        evol = {"M": [], "t": [], "GMMi": []}
     psr.printstuff = printstuff
 
     last_fe = None
@@ -85,13 +95,16 @@ def icp_two_set(
         if printstuff:
             print("ITERATION NUMBER ", it)
         evol["GMMi"].append(gmm_mod.GMMState(*(t.clone() for t in psr.gmm[0])))
-        evol["a0"].append(psr.a0.detach().cpu().numpy())
+        common.snapshot_registration(psr, evol, is_diff)
 
         psr.GMM_opt(max_iterations=optim_options["max_repeat_GMM"], tol=tol)
         if callback_function is not None:
             callback_function(psr, True)
-        psr.Reg_opt(tol=tol, nmax=10,
-                    carry_memory=numerical_options["carry_memory_LDDMM"])
+        if is_diff:
+            psr.Reg_opt(tol=tol, nmax=10,
+                        carry_memory=numerical_options["carry_memory_LDDMM"])
+        else:
+            psr.Reg_opt(tol=tol, nmax=1)
         if callback_function is not None:
             callback_function(psr, False)
 

@@ -14,6 +14,9 @@
 - With a process ``group`` the points are this rank's shard: the M-step
   statistics and the free-energy sums are all-reduced over the group, so
   every rank applies the same update (the JAX package's ``axis_name``).
+- ``fit``, ``sample`` and ``symm_kl_div`` draw from an explicit
+  ``torch.Generator`` on the points' device (the JAX package's PRNG keys);
+  ``fit`` also takes the start indices from the caller.
 """
 
 from __future__ import annotations
@@ -286,3 +289,73 @@ def em_optimization(state: GMMState, x, mask: Optional[torch.Tensor],
                                             out.fe, out.gamt)
         i += 1
     return EMOptOut(state=state, y=y, cfe=cfe, fe=fe, n_iters=i, gamt=gamt)
+
+
+def fit(x, c: int, generator: Optional[torch.Generator] = None, mask=None,
+        fixed_sigma: Optional[float] = None, optimize_w: bool = False,
+        use_outliers: bool = False, max_iterations: int = 100, tol: float = 1e-5,
+        idx=None):
+    """GMM with C components started at C data points, then EM-optimized
+    (reference get_GMM_model, GMM.py:361-383).  The start indices are ``idx``
+    when given, else drawn uniformly (or with probabilities proportional to
+    ``mask``) from ``generator``, which lies on x's device."""
+    if idx is None:
+        if mask is None:
+            idx = torch.randint(0, x.shape[0], (c,), generator=generator,
+                                device=x.device)
+        else:
+            idx = torch.multinomial(mask / mask.sum(), c, replacement=True,
+                                    generator=generator)
+    state, cfg = create(x[torch.as_tensor(idx, device=x.device)],
+                        use_outliers=use_outliers, device=x.device)
+    cfg = cfg._replace(optimize_w=optimize_w)
+    if fixed_sigma is not None:
+        cfg = cfg._replace(optimize_sigma=False)
+        if fixed_sigma > 0:
+            state = state._replace(sigma=state.sigma.new_tensor(float(fixed_sigma)))
+    if use_outliers:
+        state = set_vol0(state, x, mask)
+    out = em_optimization(state, x, mask, cfg, max_iterations, tol)
+    return out.state, cfg
+
+
+# ---------------------------------------------------------------------------
+# Sampling and likelihoods (GMM.py:543-550, 694-721, 729-735)
+# ---------------------------------------------------------------------------
+
+def sample(state: GMMState, generator: Optional[torch.Generator], n: int):
+    """N points drawn from the mixture (no outlier term), GMM.py:543-550."""
+    mu = state.mu
+    comps = torch.multinomial(torch.softmax(state.w, 0), n, replacement=True,
+                              generator=generator)
+    noise = torch.randn((n, mu.shape[1]), generator=generator, dtype=mu.dtype,
+                        device=mu.device)
+    return mu[comps] + state.sigma * noise
+
+
+def log_likelihoods(state: GMMState, x):
+    """Per-point log-density under the mixture (GMM.py:714-721), correctly
+    normalized: log sum_c pi_c N(mu_c, sigma^2 I)(x), as in the JAX package
+    (the reference carries an extra 1/sigma^D factor)."""
+    d2 = ((x[:, None, :] - state.mu[None, :, :]) ** 2).sum(-1)
+    lpi = torch.log_softmax(state.w, 0)
+    return (torch.logsumexp(lpi[None, :] - d2 / (2 * state.sigma**2), 1)
+            - _log_gauss_norm(state.sigma, x.shape[1]))
+
+
+def likelihoods(state: GMMState, x):
+    return torch.exp(log_likelihoods(state, x))
+
+
+def symm_kl_div(state_x: GMMState, state_y: GMMState,
+                generator: Optional[torch.Generator] = None, n_sample: int = 1000,
+                samples=None):
+    """Monte-Carlo symmetric KL divergence between two GMMs (GMM.py:729-735),
+    over n_sample points drawn from each, or over ``samples`` = (xs, ys)."""
+    if samples is None:
+        samples = (sample(state_x, generator, n_sample),
+                   sample(state_y, generator, n_sample))
+    xs, ys = samples
+    kl_xy = (log_likelihoods(state_x, xs) - log_likelihoods(state_y, xs)).mean()
+    kl_yx = (log_likelihoods(state_y, ys) - log_likelihoods(state_x, ys)).mean()
+    return kl_xy + kl_yx

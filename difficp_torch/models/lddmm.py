@@ -12,6 +12,9 @@
 - With grid or custom support the data are advected as external points
   ``x0`` through the fused ext RHS; the dataloss then reads the warped data.
 - ``v2p`` estimates momenta from a target field (pinv, ridge, CG ridge).
+- ``random_p`` samples momenta from the Bayesian prior (svd, ridge, and the
+  matrix-free rff_cg above the pair limit), drawing from an explicit
+  ``torch.Generator``.
 
 Shapes: q0, p0 (..., M, D), x0 (..., N, D), masks (..., M) / (..., N).
 ``optimize`` takes frames on a leading K axis.
@@ -19,12 +22,17 @@ Shapes: q0, p0 (..., M, D), x0 (..., N, D), masks (..., M) / (..., N).
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from difficp_torch.ops import backend as red
-from difficp_torch.ops.solvers import kpinv_solve, kridge_solve, kridge_solve_cg
+from difficp_torch.ops.solvers import (
+    _masked_gram, kpinv_solve, kridge_solve, kridge_solve_cg, rff_gaussian_field,
+    svd_pow,
+)
 from difficp_torch.utils.integrators import integrate
 from difficp_torch.utils.lbfgs import lbfgs_optimize, seed_alpha_for
 
@@ -243,6 +251,66 @@ def v2p(cfg: LDDMMConfig, q, v_target, rcond=1e-3, alpha=1e-4,
     if version == "ridge_cg":
         return kridge_solve_cg(q, v_target, cfg.sigma, alpha=alpha, mask=qmask)
     raise ValueError(f"unknown v2p version: {version}")
+
+
+def random_p(cfg: LDDMMConfig, q, generator: Optional[torch.Generator] = None,
+             rcond=1e-3, alpha=1e-4, version: str = "svd", qmask=None,
+             n_features=2048, cg_tol=1e-6, cg_maxiter=500, zeta=None):
+    """Momenta sampled from the Bayesian prior P(p) ~ exp(-lambda H(q, p))
+    (LDDMM.py:257-280), eta == 0 only.  q (..., M, D), frames on leading
+    axes; draws come from ``generator`` on q's device.
+
+    'svd' and 'ridge' take a dense root of K(q, q) (O(M^2) memory, O(M^3)
+    compute), applied to standard normals ``zeta`` (drawn when None).
+    Above the dense pair limit 'ridge' re-routes to 'rff_cg' with a warning:
+    u ~ N(0, K + alpha I) as a random-Fourier-feature field plus sqrt(alpha)
+    white noise, then p = (K + alpha I)^{-1} u / sqrt(lambda) by the
+    matrix-free CG ridge solve, whose matvec is the dispatched kernel-sum
+    (the same law as 'ridge' up to the O(1/sqrt(n_features)) RFF covariance
+    error).  'svd' has no matrix-free form and raises there."""
+    if cfg.eta != 0.0:
+        raise NotImplementedError("random_p requires gradcomponent=False")
+    m = q.shape[-2]
+    if m * m > red.DENSE_PAIR_LIMIT and version == "ridge":
+        warnings.warn(
+            f"random_p: M={m} exceeds the dense pair limit; rerouting "
+            "version='ridge' to the matrix-free 'rff_cg' sampler (same "
+            "target distribution, up to O(1/sqrt(n_features)) RFF "
+            "covariance error). Pass version='rff_cg' to silence.",
+            stacklevel=2)
+        version = "rff_cg"
+    if version == "rff_cg":
+        f = rff_gaussian_field(q, cfg.sigma, q.shape[-1], n_features, generator)
+        xi = torch.randn(q.shape, generator=generator, dtype=q.dtype, device=q.device)
+        u = f + math.sqrt(alpha) * xi
+        if qmask is not None:
+            u = u * qmask[..., None]
+        with torch.no_grad():
+            p = kridge_solve_cg(q, u, cfg.sigma, alpha=alpha, mask=qmask, tol=cg_tol,
+                                maxiter=cg_maxiter)
+        return p / math.sqrt(cfg.lambd)
+    if m * m > red.DENSE_PAIR_LIMIT:
+        raise ValueError(
+            f"random_p version='{version}' needs a dense (M, M) kernel matrix "
+            f"root; M={m} is above the dense pair limit ({red.DENSE_PAIR_LIMIT} "
+            "pairs). Use version='rff_cg' (matrix-free pathwise sampling, same "
+            "distribution as 'ridge'), or sample on a decimated or grid "
+            "support set.")
+    if version not in ("svd", "ridge"):
+        raise ValueError(f"unknown random_p version: {version}")
+    k = _masked_gram(q, cfg.sigma, qmask)
+    if zeta is None:
+        zeta = torch.randn(q.shape, generator=generator, dtype=q.dtype, device=q.device)
+    zeta = zeta / math.sqrt(cfg.lambd)
+    if version == "svd":
+        p = svd_pow(k, -0.5, rcond) @ zeta
+    else:
+        eye = torch.eye(m, dtype=q.dtype, device=q.device)
+        chol = torch.linalg.cholesky(k + alpha * eye)
+        p = torch.linalg.solve_triangular(chol, zeta, upper=False)
+    if qmask is not None:
+        p = p * qmask[..., None]
+    return p
 
 
 def quad_dataloss(y, cmul: float = 1.0):

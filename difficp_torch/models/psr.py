@@ -17,8 +17,8 @@ Support is dense (support = all data points, the default), a greedy
 decimation of each frame's points (decim), a grid or custom points; with
 decim, grid or custom support the data are advected as external points and
 each ``Reg_opt`` ends with a coverage pass over the saved trajectory.
-``run()`` is the fused loop's semantics as a Python loop.  ``AffinePSR``
-comes with a later slice.
+``AffinePSR`` fits each frame's affine map in closed form, all frames in one
+batched call.  ``run()`` is the fused loop's semantics as a Python loop.
 """
 
 from __future__ import annotations
@@ -29,9 +29,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from difficp_torch.models import affine as affine_mod
 from difficp_torch.models import gmm as gmm_mod
 from difficp_torch.models import lddmm as lddmm_mod
-from difficp_torch.models.registration import LDDMMRegistration
+from difficp_torch.models.registration import AffineRegistration, LDDMMRegistration
 from difficp_torch.ops import backend as red
 from difficp_torch.utils.integrators import tree_map
 from difficp_torch.utils.io import PaddedFrames, pad_frames, pad_structures
@@ -105,6 +106,11 @@ def _reg_opt_lddmm(lcfg, q0, a0, x0, y, sig2, qmask, xmask, ptw, nmax, tol,
             uncovered, res.alpha, res.memory,
             (res.grad, res.final, res.trajl, res.datal), res.n_evals,
             res.alpha_qn, res.stalled)
+
+
+def _reg_opt_affine(acfg, x0, y, z, w, xmask):
+    """All-frames closed-form affine fits (PSR.py:620-653), one batched call."""
+    return affine_mod.optimize(acfg, x0, y, z, w=w, mask=xmask)
 
 
 class MultiPSR:
@@ -277,6 +283,43 @@ class MultiPSR:
             self.fe_increase_events += 1
             print("WARNING: measured increase in free energy ! Should not happen.")
         self.FE = fe
+
+    def _gmm_pass(self, max_em, em_tol):
+        """EM on every structure from the current warped points: new GMM
+        states, targets y, weights ptw and the Cfe of each structure."""
+        ys, ptws, cfes = [], [], []
+        for s in range(self.S):
+            xs = self.struct_view(self.x1, s)
+            ms = self.structs[s].mask
+            opt = gmm_mod.em_optimization(
+                self.gmm[s], xs.reshape(-1, self.D), ms.reshape(-1),
+                self.gmm_cfg[s], max_iterations=max_em, tol=em_tol)
+            self.gmm[s] = opt.state
+            ys.append(opt.y.reshape(xs.shape))
+            ptws.append(opt.gamt.reshape(ms.shape))
+            cfes.append(opt.cfe)
+        return torch.cat(ys, 1), torch.cat(ptws, 1), torch.stack(cfes)
+
+    def _close_run(self, fes, n_iters):
+        """FE bookkeeping after a fused run of ``n_iters`` alternations whose
+        free energies are ``fes`` (tensors): increases are counted over the
+        sequence and against the FE before the run (PSR.py:114-127); the
+        host bookkeeping is refreshed (``update_GMM_targets``).  Returns the
+        sequence as numpy."""
+        fes_host = torch.stack(fes).double().cpu().numpy()
+        inc = int(np.sum(np.diff(fes_host) > 1e-4 * np.abs(fes_host[:-1]) + 1e-6))
+        if self.FE is not None and fes_host[0] > self.FE + 1e-4 * abs(self.FE):
+            inc += 1
+        if inc and self.printstuff:
+            print("WARNING: measured increase in free energy ! Should not happen.")
+        self.fe_increase_events += inc
+        self.FE = float(fes_host[-1])
+        keep, self.printstuff = self.printstuff, False
+        self.update_GMM_targets()  # refresh y/ptw/Cfe/quadloss consistently
+        self.printstuff = keep
+        if self.printstuff:
+            print(f"run({n_iters}) : FE {fes_host[0]:.6} -> {self.FE:.6}")
+        return fes_host
 
     def Reg_opt(self, tol=1e-3, nmax=10):
         raise NotImplementedError
@@ -476,22 +519,6 @@ class DiffPSR(MultiPSR):
             msg = None
         self.update_FE(message=msg)
 
-    def _gmm_pass(self, max_em, em_tol):
-        """EM on every structure from the current warped points: new GMM
-        states, targets y, weights ptw and the Cfe of each structure."""
-        ys, ptws, cfes = [], [], []
-        for s in range(self.S):
-            xs = self.struct_view(self.x1, s)
-            ms = self.structs[s].mask
-            opt = gmm_mod.em_optimization(
-                self.gmm[s], xs.reshape(-1, self.D), ms.reshape(-1),
-                self.gmm_cfg[s], max_iterations=max_em, tol=em_tol)
-            self.gmm[s] = opt.state
-            ys.append(opt.y.reshape(xs.shape))
-            ptws.append(opt.gamt.reshape(ms.shape))
-            cfes.append(opt.cfe)
-        return torch.cat(ys, 1), torch.cat(ptws, 1), torch.stack(cfes)
-
     def run(self, n_iters: int, max_em: int = 25, em_tol: float = 1e-3,
             reg_nmax: int = 10, reg_tol: float = 1e-3, reg_inner: int = 20,
             reg_ls: int = 25, carry_memory: bool = False):
@@ -540,20 +567,7 @@ class DiffPSR(MultiPSR):
         self._reg_alpha_qn = aqn
         if carry_memory:
             self._reg_memory = mem
-        fes_host = torch.stack(fes).double().cpu().numpy()
-        inc = int(np.sum(np.diff(fes_host) > 1e-4 * np.abs(fes_host[:-1]) + 1e-6))
-        if self.FE is not None and fes_host[0] > self.FE + 1e-4 * abs(self.FE):
-            inc += 1
-        if inc and self.printstuff:
-            print("WARNING: measured increase in free energy ! Should not happen.")
-        self.fe_increase_events += inc
-        self.FE = float(fes_host[-1])
-        keep, self.printstuff = self.printstuff, False
-        self.update_GMM_targets()  # refresh y/ptw/Cfe/quadloss consistently
-        self.printstuff = keep
-        if self.printstuff:
-            print(f"run({n_iters}) : FE {fes_host[0]:.6} -> {self.FE:.6}")
-        return fes_host
+        return self._close_run(fes, n_iters)
 
     def Registration(self, k=0) -> LDDMMRegistration:
         return LDDMMRegistration(cfg=self.lcfg, q0=self.q0[k], a0=self.a0[k],
@@ -569,3 +583,59 @@ class DiffPSR(MultiPSR):
         if use_ext and not support:
             return traj.x.cpu().numpy()
         return traj.q.cpu().numpy()
+
+
+class AffinePSR(MultiPSR):
+    """MultiPSR with affine registrations (PSR.py:578-653)."""
+
+    def __init__(self, x, gmm_states, gmm_cfgs, affine_cfg: affine_mod.AffineConfig,
+                 device=None):
+        super().__init__(x, gmm_states, gmm_cfgs, device)
+        self.acfg = affine_cfg
+        self.M = torch.eye(self.D, device=self.device).expand(self.K, self.D, self.D)
+        self.t = torch.zeros((self.K, self.D), device=self.device)
+        self.update_GMM_targets()
+
+    def _fit(self, y, ptw):
+        # z_n = gammaT_n / (2 sigma_s^2) (PSR.py:630-633, with the inlier
+        # weight of the outlier model); w_n = gammaT_n for the logdet term
+        z = ptw / (2.0 * self._sig2_vector())
+        fit = _reg_opt_affine(self.acfg, self.x0, y, z, ptw, self.xmask)
+        self.M, self.t, self.x1 = fit.m, fit.t, fit.tx
+        self.regloss = fit.regl
+        return fit
+
+    def Reg_opt(self, tol=1e-3, nmax=1):
+        fit = self._fit(self.y, self.ptw)
+        self._update_quadlosses()
+        if self.printstuff:
+            total = float(fit.datal.sum() + fit.regl.sum())
+            msg = f"Affine Reg_opt ({self.K} frames) : loss={total:.4}"
+        else:
+            msg = None
+        self.update_FE(message=msg)
+
+    def run(self, n_iters: int, max_em: int = 25, em_tol: float = 1e-3, **_):
+        """``n_iters`` alternations of (GMM EM, closed-form affine fits), the
+        JAX package's fused loop (``_run_loop_affine``) as a Python loop.
+        FE = sum Cfe + sum regl + quad per iteration.
+
+        :return: per-iteration free-energy sequence (numpy array).
+        """
+        if n_iters <= 0:
+            return np.zeros((0,), np.float64)
+        fes = []
+        for _ in range(n_iters):
+            y, ptw, cfes = self._gmm_pass(max_em, em_tol)
+            sig2 = self._sig2_vector()
+            fit = self._fit(y, ptw)
+            quad = ((self.xmask * ptw)[..., None] * (fit.tx - y) ** 2
+                    / (2.0 * sig2[..., None])).sum()
+            fes.append(cfes.sum() + fit.regl.sum() + quad)
+        return self._close_run(fes, n_iters)
+
+    def Registration(self, k=0) -> AffineRegistration:
+        return AffineRegistration(cfg=self.acfg, m=self.M[k], t=self.t[k])
+
+    def trajectories(self, k=0, **_):
+        return np.stack(affine_mod.shoot(self.acfg, self.M[k], self.t[k], self.x0[k]))

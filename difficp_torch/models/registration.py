@@ -4,8 +4,8 @@ registrations.py:21-123).
 
 A handle wraps frozen registration parameters of one frame; ``apply`` warps
 external points forward, ``backward`` inverts by shooting from the arrival
-state with negated momenta (registrations.py:66-69).  ``AffineRegistration``
-comes with ``AffinePSR``.
+state with negated momenta (registrations.py:66-69); the affine handle
+inverts by a linear solve.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from difficp_torch.models import affine as affine_mod
 from difficp_torch.models import lddmm as lddmm_mod
 
 
@@ -42,3 +43,22 @@ class LDDMMRegistration(NamedTuple):
     def backward(self, y):
         final, _ = self.shoot(y, backward=True, save_traj=False)
         return final.x
+
+
+class AffineRegistration(NamedTuple):
+    cfg: affine_mod.AffineConfig
+    m: torch.Tensor
+    t: torch.Tensor
+
+    def _points(self, x):
+        return torch.as_tensor(x, dtype=self.m.dtype, device=self.m.device)
+
+    def apply(self, x):
+        return affine_mod.apply(self.m, self.t, self._points(x))
+
+    def backward(self, y):
+        return affine_mod.backward(self.m, self.t, self._points(y))
+
+    def shoot(self, x):
+        """Interpolated trajectory (host-side; visualization)."""
+        return affine_mod.shoot(self.cfg, self.m, self.t, x)

@@ -472,9 +472,20 @@ def _frames(q):
     return b, q.shape[-2], q.shape[-1]
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel of this package returned a CUDA error at its launch."""
+
+
+# the errors that mean the card or a kernel failed, not the numbers: callers
+# that skip a failed computation (the "auto" calibration's frame pairs) let
+# these through
+DEVICE_FAULTS = (KernelLaunchError, torch.cuda.OutOfMemoryError,
+                 *((torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()))
+
+
 def _raise_on(err, name):
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _order_for(q, m, order, sigma):

@@ -1,8 +1,10 @@
 """RKHS kernel solves (counterpart of ``difficp_tpu/ops/solvers.py``):
-``KpinvSolve`` (kernel.py:227-232) and ``KridgeSolve`` (kernel.py:234-242)
-with ``torch.linalg``, and a matrix-free conjugate-gradient ridge solve whose
-matvec is the dispatched ``backend.kred``.  They run at set-up time only
-(momentum initialization and projection, LDDMM.py:235-253).
+``SVDpow`` (kernel.py:31-44), ``KpinvSolve`` (kernel.py:227-232) and
+``KridgeSolve`` (kernel.py:234-242) with ``torch.linalg``, a matrix-free
+conjugate-gradient ridge solve whose matvec is the dispatched
+``backend.kred``, and a random-Fourier-feature Gaussian field.  They run at
+set-up time only (momentum initialization and projection, prior sampling,
+LDDMM.py:235-280).
 
 Masked convention: padded support rows are replaced by identity rows in the
 kernel matrix and zeroed right-hand sides, so solutions carry exact zeros in
@@ -13,6 +15,20 @@ are frames.
 from __future__ import annotations
 
 import torch
+
+
+def svd_pow(m, alpha: float, rcond: float | None = None):
+    """SVD-based (pseudo-)power of a hermitian matrix, m ** alpha; with
+    ``rcond`` the singular values below rcond * s_max are dropped (crucial
+    when alpha < 0; reference kernel.py:31-44)."""
+    u, s, vh = torch.linalg.svd(m)
+    if rcond is not None:
+        keep = s > rcond * s[..., :1]
+        spow = torch.where(keep, torch.where(keep, s, torch.ones_like(s)) ** alpha,
+                           torch.zeros_like(s))
+    else:
+        spow = s**alpha
+    return (u * spow[..., None, :]) @ vh
 
 
 def _masked_gram(q, sigma, mask=None, diag_boost=0.0):
@@ -106,3 +122,26 @@ def kridge_solve_cg(q, v, sigma, alpha=1e-4, mask=None, tol=1e-6, maxiter=500):
     if mask is not None:
         x = x * mask[..., None]
     return x
+
+
+def rff_gaussian_field(q, sigma, n_cols, n_features=2048, generator=None):
+    """f of shape (..., M, n_cols): each column an independent sample of a
+    Gaussian field with Cov(f_i, f_j) ~= K_ij = exp(-|q_i - q_j|^2 / 2
+    sigma^2), by random Fourier features (Rahimi & Recht 2007): O(M F)
+    compute and memory, no (M, M) matrix.  phi_f(x) = sqrt(2/F) cos(w_f . x
+    + b_f) with w ~ N(0, I / sigma^2), b ~ U[0, 2 pi) gives E[phi(x) .
+    phi(y)] = K(x, y), so f = Phi gamma with gamma ~ N(0, I_F); the error is
+    O(1 / sqrt(F)) in each entry.  Drawn from ``generator`` (w, b, gamma in
+    that order) on q's device, independently for each leading frame."""
+    lead, d = q.shape[:-2], q.shape[-1]
+
+    def draw(*shape):
+        return torch.randn(lead + shape, generator=generator, dtype=q.dtype,
+                           device=q.device)
+
+    w = draw(n_features, d) / sigma
+    b = 2.0 * torch.pi * torch.rand(lead + (n_features,), generator=generator,
+                                    dtype=q.dtype, device=q.device)
+    gamma = draw(n_features, n_cols)
+    phi = (2.0 / n_features) ** 0.5 * torch.cos(q @ w.transpose(-1, -2) + b[..., None, :])
+    return phi @ gamma

@@ -1,8 +1,9 @@
 """State carried across between the JAX package and the port, as numpy arrays.
 
 ``load_psr_state`` puts a mid-run ``DiffPSR`` state (GMMs, momenta, points,
-targets and the L-BFGS state threaded between ``Reg_opt`` calls) into a port
-``DiffPSR``, so both packages can continue from the same point;
+targets and the L-BFGS state threaded between ``Reg_opt`` calls) or
+``AffinePSR`` state (GMMs, the maps M and t, points and targets) into a port
+PSR of the same kind, so both packages can continue from the same point;
 ``psr_state_to_numpy`` is the reverse.  Arrays are keyed by the attribute
 names both packages use; a GMM is a dict of its five fields and the curvature
 memory a dict of the ``LBFGSMemory`` fields.  The support travels as
@@ -22,7 +23,7 @@ from difficp_torch.models.gmm import GMMState
 from difficp_torch.utils.lbfgs import LBFGSMemory
 from difficp_torch.utils.spec import as_tensor
 
-_ARRAYS = ("a0", "q0", "qmask", "x0", "xmask", "x1", "y", "ptw")
+_ARRAYS = ("a0", "q0", "qmask", "x0", "xmask", "x1", "y", "ptw", "M", "t")
 _LANE_STATE = ("_reg_alpha", "_reg_alpha_qn")
 _SUPPORT = ("support_scheme", "rho")
 
@@ -78,10 +79,12 @@ def twoset_out_from_numpy(out: dict, rank: int, world: int, device):
 
 
 def load_psr_state(psr, arrays: dict):
-    """Load a mid-run state into a port ``DiffPSR`` of the same shapes.
+    """Load a mid-run state into a port ``DiffPSR`` or ``AffinePSR`` of the
+    same shapes.
 
     ``arrays`` keys: ``gmm`` (list over structures of dicts mu/w/sigma/eta0/
-    vol0), the point arrays of ``_ARRAYS``, ``support_scheme`` and ``rho``,
+    vol0), the arrays of ``_ARRAYS`` (an affine state's M and t, a
+    diffeomorphic one's momenta and support), ``support_scheme`` and ``rho``,
     ``Cfe`` (list) and ``FE``, and the threaded ``_reg_alpha``, ``_reg_alpha_qn``, ``_reg_memory`` (dict) and
     ``_reg_stall``, each optional (None = cold).  The threaded entry
     (value, grad) is not carried: the next ``Reg_opt`` re-evaluates it."""
@@ -89,7 +92,7 @@ def load_psr_state(psr, arrays: dict):
     psr.gmm = [gmm_state_from_numpy(g["mu"], g["w"], g["sigma"], g["eta0"],
                                     g["vol0"], dev) for g in arrays["gmm"]]
     for name in _ARRAYS:
-        if name in arrays:
+        if arrays.get(name) is not None:
             setattr(psr, name, as_tensor(arrays[name], dev))
     for name in _SUPPORT:
         if name in arrays:
@@ -121,7 +124,7 @@ def psr_state_to_numpy(psr) -> dict:
     for name in _ARRAYS + _LANE_STATE + ("_reg_stall",):
         out[name] = host(getattr(psr, name, None))
     for name in _SUPPORT:
-        out[name] = getattr(psr, name)
+        out[name] = getattr(psr, name, None)
     out["Cfe"] = [host(c) for c in psr.Cfe]
     mem = getattr(psr, "_reg_memory", None)
     out["_reg_memory"] = None if mem is None else {

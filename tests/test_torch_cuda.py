@@ -951,3 +951,98 @@ def test_direct_forwards_match_plain_at_ragged_shapes(cuda, case):
     if got[0].shape[0] >= 3:
         # frame 1's columns all masked, frame 2's rows
         assert bool((got[0][1] == 0).all()) and bool((got[0][2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("version", ["rigid", "similarity", "general_affine", "translation"])
+@pytest.mark.parametrize("withlogdet", [False, True])
+def test_affine_fits_on_card_match_cpu(cuda, version, withlogdet, dtype):
+    """The closed-form affine fits of 10 frames of 65,536 points in one
+    batched call on the card (cuBLAS sums, cuSOLVER d x d factorizations)
+    against the same call on the CPU.  In float64 M and t within 1e-5; in
+    float32 M within 1e-4 of its largest |entry| and t = ym - M xm, a
+    difference of coordinates, within 1e-4 of the largest |coordinate|,
+    against the CPU's float32 fit and its float64 fit.  On the CPU the
+    float32 fits of these frames stay within 1e-5 of those scales of the
+    float64 fit and of the fit of the points in another order
+    (tests/test_torch_affine.py::test_float32_fits_of_large_frames); on an
+    H100 the float32 fits were ~2e-5 from the CPU's, above a 1e-5 bound
+    (cuBLAS's float32 sums over 65,536 points, ~sqrt(N) 2^-24 = 1.5e-5
+    relative each).  The logdet term -sum(w) log|det M| within that bound
+    times sum(w)."""
+    from difficp_torch.models import affine
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((10, 65536, 2), generator=g, dtype=torch.float64)
+    th = 0.3 * torch.rand((10,), generator=g, dtype=torch.float64)
+    rot = torch.stack([torch.stack([th.cos(), -th.sin()], -1),
+                       torch.stack([th.sin(), th.cos()], -1)], -2)
+    y = 1.1 * x @ rot.transpose(-1, -2) + 0.01 * torch.randn(x.shape, generator=g,
+                                                              dtype=torch.float64)
+    z = torch.rand((10, 65536), generator=g, dtype=torch.float64)
+    mask = (torch.rand((10, 65536), generator=g, dtype=torch.float64) > 0.1).to(torch.float64)
+    x, y, z, mask = (t.to(dtype) for t in (x, y, z, mask))
+    cfg = affine.AffineConfig(version=version, withlogdet=withlogdet)
+    cpu = affine.optimize(cfg, x, y, z, z, mask)
+    card = affine.optimize(cfg, *(t.to(cuda) for t in (x, y, z, z, mask)))
+    tol = 1e-5 if dtype == torch.float64 else 1e-4
+    scales = (1.0, 1.0) if dtype == torch.float64 else (float(cpu.m.abs().max()),
+                                                         float(y.abs().max()))
+    for a, b, scale in ((card.m, cpu.m, scales[0]), (card.t, cpu.t, scales[1])):
+        assert float((a.cpu() - b).abs().max()) <= tol * scale
+    if dtype == torch.float32:
+        exact = affine.optimize(cfg, *(t.double() for t in (x, y, z, z, mask)))
+        for a, b, scale in ((card.m, exact.m, scales[0]), (card.t, exact.t, scales[1])):
+            assert float((a.cpu().double() - b).abs().max()) <= tol * scale
+    assert float((card.regl.cpu() - cpu.regl).abs().max()) <= tol * float((z * mask).sum(-1).max())
+
+
+def test_gmm_fit_on_card_matches_cpu(cuda):
+    """gmm.fit on the card from the same start indices as on the CPU (30
+    float32 EM steps over 65,536 points): centroids and sigma within 1e-4
+    relative; a start drawn from a CUDA generator."""
+    from difficp_torch.models import gmm
+
+    x = torch.rand((65536, 2), generator=torch.Generator().manual_seed(1))
+    idx = torch.arange(0, 65536, 3277)
+    cpu, _ = gmm.fit(x, 20, idx=idx, optimize_w=True, max_iterations=30, tol=0.0)
+    card, _ = gmm.fit(x.to(cuda), 20, idx=idx, optimize_w=True, max_iterations=30, tol=0.0)
+    assert torch.allclose(card.mu.cpu(), cpu.mu, rtol=1e-4, atol=2e-5)
+    assert torch.allclose(card.sigma.cpu(), cpu.sigma, rtol=1e-4)
+    drawn, _ = gmm.fit(x.to(cuda), 20, torch.Generator(device=cuda).manual_seed(0))
+    assert drawn.mu.is_cuda and bool(torch.isfinite(drawn.mu).all())
+
+
+def test_random_p_rff_cg_above_the_pair_limit(cuda):
+    """random_p "ridge" at 8,192 masked points (67M pairs) re-routes to
+    rff_cg: its CG matvec is the self forward kernel; the momenta solve
+    (K + alpha I) p sqrt(lambda) = u within the CG tolerance, masked rows
+    zero."""
+    from difficp_torch.ops import solvers
+
+    m = 8192
+    q = torch.rand((1, m, 2), generator=torch.Generator().manual_seed(2)).to(cuda)
+    mask = torch.ones((1, m), device=cuda)
+    mask[:, -100:] = 0.0
+    cfg = lddmm.make_config(sigma=0.1, lambd=100.0, version="classic", nt=10)
+    rhs = {}
+    solve = solvers.kridge_solve_cg
+
+    def recording(q_, u, *a, **k):
+        rhs["u"] = u
+        return solve(q_, u, *a, **k)
+
+    before = RS.launches["rhs_self_fwd"]
+    lddmm.kridge_solve_cg = recording
+    try:
+        with pytest.warns(UserWarning, match="rff_cg"):
+            p = lddmm.random_p(cfg, q, torch.Generator(device=cuda).manual_seed(3),
+                               version="ridge", alpha=10.0, qmask=mask)
+    finally:
+        lddmm.kridge_solve_cg = solve
+    assert RS.launches["rhs_self_fwd"] > before
+    assert bool(torch.isfinite(p).all()) and bool((p[:, -100:] == 0).all())
+    b = p * cfg.lambd ** 0.5
+    kb = backend.kred(q, q, b, cfg.sigma, mask) * mask[..., None] + 10.0 * b
+    u = rhs["u"]
+    assert float((kb - u).norm() / u.norm()) <= 1e-5

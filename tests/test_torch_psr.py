@@ -183,32 +183,16 @@ def test_icp_two_set_matches_jax():
                                rtol=FE_RTOL)
 
 
-def test_unported_routes_raise():
-    """What the port does not run yet raises, naming its later slice: affine
-    types, the {"set", "C"} atlas init, lambda "auto"; and
-    backward_precision, which has nothing to choose here."""
+def test_backward_precision_raises():
+    """backward_precision has nothing to choose here: the port has one
+    backward (ROADMAP section 3)."""
     base = dict(GMM_parameters={"sigma": 0.1, "optimize_sigma": True}, printstuff=False,
                 device="cpu")
     diffeo = {"type": "diffeomorphic", "sigma_LDDMM": 0.2, "lambda_LDDMM": 500.0}
-    with pytest.raises(NotImplementedError):
-        t_icp_two_set(X, SPIRAL["x0"], registration_parameters={"type": "rigid"}, **base)
-    with pytest.raises(NotImplementedError, match="auto"):
-        t_icp_two_set(X, SPIRAL["x0"], registration_parameters={
-            **diffeo, "lambda_LDDMM": "auto"}, **base)
-    with pytest.raises(ValueError, match="backward_precision"):  # one backward here
+    with pytest.raises(ValueError, match="backward_precision"):
         t_icp_two_set(X, SPIRAL["x0"], registration_parameters=diffeo,
                       numerical_options={"support_LDDMM": {"scheme": "dense"},
                                          "backward_precision": "accurate"}, **base)
-    frames = [SPIRAL["x0"], SPIRAL["x1"]]
-    with pytest.raises(NotImplementedError, match="gmm.fit"):
-        t_icp_atlas(frames, {"init_components": {"set": 0, "C": 10}}, diffeo,
-                    printstuff=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_icp_atlas(frames, {"init_components": 10}, {"type": "general_affine"},
-                    printstuff=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="auto"):
-        t_icp_atlas(frames, {"init_components": 10}, {**diffeo, "lambda_LDDMM": "auto"},
-                    printstuff=False, device="cpu")
     TB.set_backend(None)
 
 
