@@ -130,6 +130,27 @@ Phases, each printing JSON lines with its seconds:
                  calibration against the self kernels' float32 plain versions
                  from the same start momenta (h0_ref, lambda), and v2p's
                  start on the plain versions with both starts' residuals.
+ 27. check kred  the standard algorithm's kernel-sums (KRed on ksum, as
+                 kred_scal takes them in data_distance; mdivsum) against
+                 their float64 plain versions at the standard paths' shapes:
+                 the atlas's <fy, fx> and <fx, fx> at 10 x 65,536 x 65,536,
+                 the two-set's <fy, fy> at 65,536^2 with a weights payload
+                 (dx + dy in one tensor, db); values and gradients; then
+                 each timed (events and device time) beside its float32
+                 plain version and its ksum calls' bound;
+ 28. standard atlas path  standard_atlas on the grid main path's frames
+                 (10 x 65,536, the template frame 0's 65,536 points, grid
+                 support at sigma = 0.05, sigma_data 0.1, noise_std 0.2, 3
+                 iterations): seconds, the E sequence with no increase,
+                 launches per loss+grad, peak memory; then each kernel of
+                 the path on its own end state against float64;
+ 29. standard two-set path  standard_two_set of two such frames with dense
+                 support (65,536 support points, sigma = 0.1), 3 iterations
+                 of nmax_per_iter 4, held and printed likewise, then a
+                 "rigid" standard two-set on the same pair;
+ 30. standard route agreement  the standard atlas at 3 x 2,048 points on
+                 the kernel route and on the dense route: E sequences within
+                 5e-3.
 Each main path is driven with the launch counters set to 0 just before it
 and read just after; the paths print the free energies of earlier runs bit
 for bit or fail, and the eta = 0 paths stay within 5e-3 of those the direct
@@ -311,6 +332,18 @@ TOL_CG_RESIDUAL = 1e-4
 # both give an H some 2% from float64's (PERF.md)
 AUTO_N = 16384
 TOL_CALIB = 5e-2
+
+
+# the standard algorithm's paths: the JAX package's own standard bench
+# settings (benchmarks/scale_bench.py:237-240): sigma_data 0.1, noise_std 0.2,
+# on the grid main path's frames; the atlas at sigma_LDDMM = GRID_SIGMA on
+# the API's default grid support (rho = 1), the two-set with dense support at
+# run_large's sigma_LDDMM = SIGMA
+STD_FRAMES = 10
+STD_N = 65536
+STD_MODEL = {"sigma_data": 0.1, "noise_std": 0.2}
+STD_ITERS = 3
+STD_ROUTE_N = 2048
 
 
 def emit(obj):
@@ -993,7 +1026,8 @@ def hold_path_kernels(phase, path, rs, re, k2, x, mx, q, p, mq, cov, seed, sig=G
     for the self backward; the support's and the data rows' orders computed
     once, as the path does) within TOL_FWD and TOL_BWD, and kmin2 over the
     coverage pass's frames ``cov`` = (x, y, mask_y) within TOL_KMIN2 of each
-    distance, +inf where the plain version has it.  Fails the run on any
+    distance, +inf where the plain version has it (none where cov is None:
+    a path without a coverage pass).  Fails the run on any
     miss.  Returns the worst errors {kernel: [rel, abs]}, the cotangents
     (gx, gc, gv, gw) and the orders."""
     import torch
@@ -1034,6 +1068,9 @@ def hold_path_kernels(phase, path, rs, re, k2, x, mx, q, p, mq, cov, seed, sig=G
                   re.rhs_ext_bwd_dqdp_reference(x8, mx8, gx8, q8, p8, mq8, gc8, sig, wl),
                   TOL_BWD, withlogdet=wl)
     del x8, mx8, q8, p8, mq8, gx8, gc8, gv8, gw8, got, ref, vx, dc, rvx, rdc
+    if cov is None:
+        torch.cuda.empty_cache()
+        return worst, (gx, gc, gv, gw), (order, xorder)
     # kmin2 over all the coverage frames in one launch; its float64 plain
     # version k frames at a time, to bound its memory
     m1, m2 = k2.kmin2(*cov)
@@ -2022,20 +2059,31 @@ def hold_end_state(phase, psr, float64_route):
 
 
 @contextlib.contextmanager
-def float64_ksum(ks):
-    """ks.ksum taken by its plain version in float64 (rounded to float32 at
-    its output) inside the block; these calls launch no kernel."""
+def plain_ksum(ks, dtype, out_dtype=None):
+    """ks.ksum taken by its plain version on the caller's tensors in
+    ``dtype`` (float64: the reference the kernel is held to; float32: the
+    plain version's time), its output in ``out_dtype`` (default ``dtype``),
+    inside the block; these calls launch no kernel."""
     kernel = ks.ksum
 
     def plain(x, y, table, my, sigma):
-        return ks.ksum_reference(x.double(), y.double(), table.double(),
-                                 None if my is None else my.double(), sigma).float()
+        out = ks.ksum_reference(x.to(dtype), y.to(dtype), table.to(dtype),
+                                None if my is None else my.to(dtype), sigma)
+        return out if out_dtype is None else out.to(out_dtype)
 
     ks.ksum = plain
     try:
         yield
     finally:
         ks.ksum = kernel
+
+
+def float64_ksum(ks):
+    """ks.ksum taken by its plain version in float64, rounded to float32 at
+    its output, inside the block."""
+    import torch
+
+    return plain_ksum(ks, torch.float64, torch.float32)
 
 
 def grid_eta_psr(ks):
@@ -3040,6 +3088,464 @@ def phase_auto_lambda_path(counters, orders, icp_two_set):
     return parts["launches"], worst
 
 
+def device_ms_total(fn, runs=3):
+    """Device milliseconds per call of fn, all the kernels it launches summed:
+    a torch.profiler trace of calls each followed by a synchronize and 50 ms
+    of host sleep, its kernels cut into calls at the gaps (> 20 ms), the
+    median over the last ``runs`` calls.  A trace can miss the kernels of its
+    first milliseconds (device_ms): one with fewer than runs + 1 calls is
+    taken again with twice the calls, up to three times; None if it still
+    holds too few."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    n = runs + 2
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        calls, end = [], None
+        for a, b in spans:
+            if end is None or a - end > 20e3:
+                calls.append(0.0)
+            calls[-1] += b - a
+            end = b if end is None else max(end, b)
+        if len(calls) >= runs + 1:
+            return statistics.median(c / 1e3 for c in calls[-runs:])
+        n *= 2
+    return None
+
+
+def kred_calls():
+    """The standard paths' kernel-sums as (label, x, y, d, grads): kred_scal(x,
+    y, d) with gradients into the tensors named in ``grads`` ("x" for the
+    first point argument, "y" where it is the same tensor, "d" the payload):
+    the atlas's <fy, fx> on its 10 x 65,536 data frames against the template
+    (frame 0, jittered a frame as if warped), its <fx, fx> (the cached
+    constant, no gradient), and the two-set's <fy, fy> at 65,536^2 with a
+    weights payload (dx + dy in the one tensor, and db, the template
+    weights' gradient)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.as_tensor(np.stack(grid_frames(STD_FRAMES, STD_N)), device="cuda")
+    y = (x[:1] + 0.01 * torch.randn(x.shape, generator=g, device="cuda")).contiguous()
+    wx = torch.full(x.shape[:-1], 1.0 / STD_N, device="cuda")
+    y2 = x[1:2].contiguous()
+    w2 = (torch.rand((1, STD_N), generator=g, device="cuda") + 0.5) / STD_N
+    return [("standard atlas <fy, fx>", y, x, wx, ("x",)),
+            ("standard atlas <fx, fx>", x, x, wx, ()),
+            ("standard two-set <fy, fy>, weights", y2, y2, w2, ("x", "d"))]
+
+
+def kred_run(ks, x, y, d, grads, cot):
+    """kred_scal(x, y, d) (a KRed) and the gradients ``grads`` of <out, cot>."""
+    import torch
+
+    xs = x.detach().clone().requires_grad_("x" in grads)
+    ys = xs if y is x else y
+    ds = d.detach().clone().requires_grad_("d" in grads)
+    out = ks.kred_scal(xs, ys, ds, STD_MODEL["sigma_data"])
+    wrt = [t for name, t in (("x", xs), ("d", ds)) if name in grads]
+    gs = torch.autograd.grad((out * cot).sum(), wrt) if wrt else ()
+    return [out.detach(), *gs]
+
+
+def phase_check_kred(ks):
+    """KRed (ops/ksum.py), as kred_scal takes it on the standard paths, and
+    mdivsum against their float64 plain versions (the same Functions with
+    ksum's plain version in float64, on the same float32 inputs): values
+    within TOL_FWD and gradients within TOL_BWD of their largest float64
+    entry; with positive weights and payloads the values carry no
+    cancellation, so that is the terms' scale; the data_distance they make
+    up is printed against float64 too, relative to itself and to the sum of
+    its terms.  mdivsum at the grid main path's shape (10 x 65,536 data
+    points on their 380 grid support points), its value relative to the sum
+    of its pair terms' magnitudes.  Then each call timed: the forward and
+    the forward + backward with CUDA events (median of 5) and by device time
+    (all its kernels), beside the same Functions on ksum's float32 plain
+    version and the bound of their ksum calls (ksum_bound)."""
+    import numpy as np
+    import torch
+    from difficp_torch.ops import ksum as ksm
+    from difficp_torch.utils.point_sets import grid_support
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(19)
+    worst, shapes = [0.0, 0.0], []
+    sig = STD_MODEL["sigma_data"]
+    for label, x, y, d, grads in kred_calls():
+        nb, nx, dim = x.shape
+        ny = y.shape[1]
+        cot = torch.randn((nb, nx), generator=g, device="cuda")
+        got = kred_run(ks, x, y, d, grads, cot)
+        torch.cuda.synchronize()
+        x64 = x.double()
+        with plain_ksum(ks, torch.float64):
+            ref = kred_run(ks, x64, x64 if y is x else y.double(), d.double(), grads,
+                           cot.double())
+        del x64
+        names = ["value"] + [{"x": "dx + dy" if y is x else "dx", "d": "db"}[n] for n in grads]
+        errs = {n: (rel_err(a, r), abs_err(a, r)) for n, a, r in zip(names, got, ref)}
+        ok = all(e[0] <= (TOL_FWD if n == "value" else TOL_BWD) for n, e in errs.items())
+        # the inner product <f, f'> = sum_i d'_i out_i it makes up
+        wgt = x.new_full((nb, nx), 1.0 / nx) if y is not x else d
+        ip, ip64 = (wgt * got[0]).sum(-1), (wgt.double() * ref[0]).sum(-1)
+        emit({"phase": "check_kred", "call": label, "frames": nb, "Nx": nx, "Ny": ny,
+              "rel_err": {n: e[0] for n, e in errs.items()},
+              "abs_err": {n: e[1] for n, e in errs.items()},
+              "inner_product_rel_err": float(((ip.double() - ip64).abs() / ip64.abs()).max()),
+              "tol": [TOL_FWD, TOL_BWD], "ok": ok})
+        if not ok:
+            fail("check_kred", f"KRed disagrees with its plain version at {label}")
+        for e in errs.values():
+            worst = [max(worst[0], e[0]), max(worst[1], e[1])]
+        del got, ref
+        torch.cuda.empty_cache()
+
+        # timing: forward alone and forward + backward
+        def fwd():
+            with torch.no_grad():
+                ks.kred_scal(x, y, d, sig)
+
+        def fwd_bwd():
+            kred_run(ks, x, y, d, grads, cot)
+
+        rec = {"call": label, "frames": nb, "Nx": nx, "Ny": ny, "library_ms": None}
+        # a self sum (x is y) takes each unordered pair once at least
+        npairs = nb * (nx * (nx - 1) / 2 if y is x else nx * ny)
+        # the backward's ksum calls: the forward direction for dx, the reverse
+        # one for dy (x is y) and db
+        bwd_calls = ("x" in grads) + ("d" in grads or (y is x and "x" in grads))
+        runs = [("forward", fwd, [1])]
+        if grads:
+            runs.append(("forward_backward", fwd_bwd, [1] + [1 + dim] * bwd_calls))
+        for key, fn, ncalls in runs:
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            ms = cuda_ms(fn, 5)
+            dev = device_ms_total(fn)
+            with plain_ksum(ks, torch.float32):
+                fn()
+                torch.cuda.synchronize()
+                plain_ms = cuda_ms(fn, 1)
+            bounds = [ksum_bound(npairs, dim, c, 4.0 * nb * (nx * dim + ny * dim + c * ny
+                                                            + c * nx), self_pairs=y is x)
+                      for c in ncalls]
+            rec[key] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                        "ksum_calls": len(ncalls), "cols": ncalls,
+                        "bound_ms": sum(b["bound_ms"] for b in bounds),
+                        "bound_by": "bytes" if all(b["bound_by"] == "bytes" for b in bounds)
+                        else "operations",
+                        "bound_terms": [b["bound_term"] for b in bounds]}
+        emit({"phase": "timing", "kernel": "ksum", "op": "KRed", **rec})
+        key = runs[-1][0]
+        fb = rec[key]
+        shapes.append(dict(call=f"{label} (KRed {key.replace('_', ' + ')})", frames=nb, Nx=nx,
+                           Ny=ny,
+                           cols=fb["cols"], ms=fb["ms"], device_ms=fb["device_ms"],
+                           plain_ms=fb["plain_ms"], bound_ms=fb["bound_ms"],
+                           bound_by=fb["bound_by"], library_ms=None))
+
+    # mdivsum at the grid main path's shape
+    x = torch.as_tensor(np.stack(grid_frames(STD_FRAMES, STD_N)), device="cuda")
+    q1 = grid_support(x[0].cpu().numpy(), GRID_SIGMA)
+    q = torch.as_tensor(q1, device="cuda").expand(STD_FRAMES, *q1.shape).contiguous()
+    p = 0.05 * torch.randn(q.shape, generator=g, device="cuda")
+    mq = torch.ones(q.shape[:-1], device="cuda")
+    mx = (torch.rand(x.shape[:-1], generator=g, device="cuda") > 0.1).float()
+    cot = torch.randn((STD_FRAMES,), generator=g, device="cuda")
+
+    def mdiv(xx, qq, pp, mqq, mxx, c):
+        xs, qs, ps = (t.detach().clone().requires_grad_(True) for t in (xx, qq, pp))
+        out = ksm.mdivsum(xs, qs, ps, GRID_SIGMA, 0.0, mqq, mxx)
+        return [out.detach(), *torch.autograd.grad((out * c).sum(), [xs, qs, ps])]
+
+    got = mdiv(x, q, p, mq, mx, cot)
+    with plain_ksum(ks, torch.float64):
+        ref = mdiv(x.double(), q.double(), p.double(), mq.double(), mx.double(), cot.double())
+    # the value against the sum of its pair terms' magnitudes
+    # sum_ij k m_i m_j u |p_j.(x_i - q_j)|, in float64, frames and rows in chunks
+    u = 1.0 / GRID_SIGMA**2
+    terms = torch.zeros(STD_FRAMES, dtype=torch.float64, device="cuda")
+    x8, q8, p8, mx8 = x.double(), q.double(), p.double(), mx.double()
+    for lo in range(0, STD_N, 4096):
+        dlt = x8[:, lo:lo + 4096, None, :] - q8[:, None, :, :]
+        k = torch.exp(-0.5 * u * (dlt * dlt).sum(-1)) * mx8[:, lo:lo + 4096, None]
+        terms += (k * u * (dlt * p8[:, None, :, :]).sum(-1).abs()).sum((-2, -1))
+    val_err = float(((got[0].double() - ref[0]).abs() / terms).max())
+    errs = {"value": val_err, **{n: rel_err(a, r) for n, a, r in zip(("dx", "dq", "dp"),
+                                                                       got[1:], ref[1:])}}
+    ok = errs["value"] <= TOL_FWD and all(errs[n] <= TOL_BWD for n in ("dx", "dq", "dp"))
+    emit({"phase": "check_kred", "call": "mdivsum, grid main shape", "frames": STD_FRAMES,
+          "N": STD_N, "M": int(q.shape[1]), "rel_err": errs,
+          "value_rel_err_to_itself": float(((got[0].double() - ref[0]).abs()
+                                            / ref[0].abs()).max()),
+          "tol": [TOL_FWD, TOL_BWD], "ok": ok})
+    if not ok:
+        fail("check_kred", "mdivsum disagrees with its plain version")
+    worst = [max(worst[0], *errs.values()),
+             max(worst[1], *(abs_err(a, r) for a, r in zip(got[1:], ref[1:])))]
+    del got, ref, x8, q8, p8, mx8
+    torch.cuda.empty_cache()
+    emit({"phase": "check_kred_done", "seconds": time.perf_counter() - t0})
+    return worst, shapes
+
+
+def std_marks():
+    """A callback for standard_atlas / standard_two_set that records the
+    card's time (synchronized) and E at each call, with its flag (True: the
+    atlas's mark before Reg_opt)."""
+    import torch
+
+    marks = []
+
+    def callback(psr, before_reg):
+        torch.cuda.synchronize()
+        marks.append((before_reg, time.perf_counter(), psr.E))
+    return marks, callback
+
+
+def std_launches(counters, nt):
+    """The launches of the standard path's kernels, the loss+grad evaluations
+    (each runs one backward of nt steps: rhs_ext_bwd_dx on external points,
+    else rhs_self_bwd) and the launches per evaluation."""
+    names = ETA0_KERNELS[:-1] + ("ksum",)
+    flat = {k: v for k, v in flat_counts(counters).items() if k in names}
+    evals = (flat["rhs_ext_bwd_dx"] or flat["rhs_self_bwd"]) / nt
+    return flat, evals, {k: v / max(evals, 1) for k, v in flat.items()}
+
+
+def std_data_terms(psr, y1):
+    """The two y-dependent terms of the path's data loss, per frame:
+    sum_s <fy, fy> / noise_s^2 and sum_s 2 <fy, fx> / noise_s^2 (no template
+    weights), through backend.kred_scal in y1's dtype."""
+    import torch
+    from difficp_torch.ops import backend
+
+    yy = yx = 0.0
+    for s, (ylo, yhi, xlo, xhi) in enumerate(psr.slices):
+        y = y1[:, ylo:yhi]
+        x, mx = psr.x[:, xlo:xhi].to(y1.dtype), psr.xmask[:, xlo:xhi].to(y1.dtype)
+        wx = mx / mx.sum(-1, keepdim=True)
+        wy = torch.full(y.shape[:-1], 1.0 / y.shape[1], dtype=y1.dtype, device=y1.device)
+        yy = yy + (wy * backend.kred_scal(y, y, wy, psr.data_sigma)).sum(-1) / psr.noise2[s]
+        yx = yx + 2.0 * (wy * backend.kred_scal(y, x, wx, psr.data_sigma)).sum(-1) \
+            / psr.noise2[s]
+    return yy, yx
+
+
+def hold_kred_on_path(phase, path, ks, psr):
+    """The path's data-loss kernel-sums on its own end state: the dataloss
+    Reg_opt descends (data_distance with skip_xx, <fy, fy> - 2 <fy, fx>) of
+    every frame and its gradient in the warped templates, through the
+    kernels, against its two terms computed with ksum's float64 plain
+    version, at the terms' scale: the loss within TOL_FWD of |<fy, fy>| +
+    2 |<fy, fx>|, the gradient within TOL_BWD of the larger of the two
+    terms' largest gradient entries.  Near the fit the two terms cancel (the
+    error relative to the loss itself and to the largest entry of its
+    gradient is printed beside).  Returns the worst errors."""
+    import torch
+    from difficp_torch.models.psr_standard import _frame_rkhs_dataloss
+
+    y1 = psr.y1.detach().clone().requires_grad_(True)
+    loss = _frame_rkhs_dataloss(psr.x, psr.xmask, None, psr.noise2, psr.data_sigma,
+                                psr.slices)(y1)
+    (grad,) = torch.autograd.grad(loss.sum(), y1)
+    loss = loss.detach()
+    y8 = psr.y1.detach().double().requires_grad_(True)
+    with plain_ksum(ks, torch.float64):
+        yy, yx = std_data_terms(psr, y8)
+        g_yy, = torch.autograd.grad(yy.sum(), y8, retain_graph=True)
+        g_yx, = torch.autograd.grad(yx.sum(), y8)
+    loss64, grad64 = (yy - yx).detach(), g_yy - g_yx
+    terms = (yy.abs() + yx.abs()).detach()
+    rel_loss = float(((loss.double() - loss64).abs() / terms).max())
+    gscale = max(float(g_yy.abs().max()), float(g_yx.abs().max()))
+    rel_grad = abs_err(grad, grad64) / gscale
+    ok = rel_loss <= TOL_FWD and rel_grad <= TOL_BWD
+    emit({"phase": phase, "kernel": "ksum", "path": path, "loss": loss.tolist(),
+          "loss_float64": loss64.tolist(), "loss_rel_err_to_terms": rel_loss,
+          "loss_rel_err_to_itself": float(((loss.double() - loss64).abs()
+                                           / loss64.abs()).max()),
+          "grad_rel_err_to_terms": rel_grad, "grad_rel_err_to_itself": rel_err(grad, grad64),
+          "terms_grad_scale_over_grad": gscale / float(grad64.abs().max()),
+          "tol": [TOL_FWD, TOL_BWD], "ok": ok})
+    if not ok:
+        fail(phase, f"the {path} path's data loss or its gradient is not within tolerance "
+                    "of float64 at the terms' scale")
+    del grad, grad64, g_yy, g_yx, y8
+    torch.cuda.empty_cache()
+    return [max(rel_loss, rel_grad), abs_err(loss, loss64)]
+
+
+def phase_standard_atlas_path(counters, orders, ks, standard_atlas):
+    """standard_atlas on the grid main path's frames (10 x 65,536 points),
+    initial_template=0 (a template of 65,536 points), the API's default grid
+    support at sigma_LDDMM = GRID_SIGMA (~380 support points, so the ext
+    shoot takes the kernels), sigma_data 0.1, noise_std 0.2, STD_ITERS
+    iterations (each a lockstep Reg_opt and a Template_opt).  Holds the
+    energy oracle (grid support re-projects nothing: no increase), then
+    every kernel of the path on its own end state against float64: the
+    support's self kernels and the ext kernels (hold_path_kernels: the
+    template as the external points, no kmin2 on this path) and the data
+    loss's kernel-sums (hold_kred_on_path)."""
+    import torch
+    from difficp_torch.ops import kmin2 as k2
+    from difficp_torch.ops import rhs_ext as re
+    from difficp_torch.ops import rhs_self as rs
+
+    frames = grid_frames(STD_FRAMES, STD_N)
+    reset(*counters.values(), orders)
+    torch.cuda.reset_peak_memory_stats()
+    marks, callback = std_marks()
+    t0 = time.perf_counter()
+    psr, evol = standard_atlas(
+        frames, initial_template=0,
+        model_parameters={**STD_MODEL, "sigma_LDDMM": GRID_SIGMA},
+        optim_options={"max_iterations": STD_ITERS}, callback_function=callback,
+        printstuff=False, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    flat, evals, per_eval = std_launches(counters, psr.lcfg.nt)
+    starts = [t for before, t, _ in marks if before]
+    es = [e for before, _, e in marks if before] + [psr.E]
+    emit({"phase": "standard_atlas_path", "frames": STD_FRAMES, "n_points": STD_N,
+          "template_points": int(psr.ny_tot), "grid_M": int(psr.q0.shape[0]),
+          "sigma_lddmm": GRID_SIGMA, **STD_MODEL, "setup_seconds": starts[0] - t0,
+          "seconds_per_outer_iteration": [b - a for a, b in zip(starts, starts[1:] + [t1])],
+          "seconds": t1 - t0, "E_sequence": es, "e_increase_events": psr.e_increase_events,
+          "launches": flat, "loss_grad_evals": evals, "launches_per_loss_grad": per_eval,
+          "max_memory_allocated_bytes": peak})
+    if not (flat["ksum"] > 0 and flat["rhs_ext_fwd"] > 0 and flat["rhs_ext_bwd_dx"] > 0
+            and flat["rhs_ext_bwd_dqdp"] > 0):
+        fail("standard_atlas_path", f"a kernel of the path never launched: {flat}")
+    if not (all(map(math.isfinite, es)) and psr.e_increase_events == 0 and es[-1] < es[0]):
+        fail("standard_atlas_path", f"energy not finite, rising or not decreasing: {es}")
+    if not (len(evol["y0"]) == STD_ITERS and bool(torch.isfinite(psr.y1).all())):
+        fail("standard_atlas_path", "warped templates not finite")
+
+    x = psr._frames(psr.ally0)
+    q = psr._frames(psr.q0)
+    mx = torch.ones(x.shape[:-1], device="cuda")
+    mq = torch.ones(q.shape[:-1], device="cuda")
+    worst, _, _ = hold_path_kernels("check_standard_atlas_path", "standard_atlas", rs, re, k2,
+                                    x, mx, q, psr.a0.detach(), mq, None, seed=23)
+    worst["ksum"] = hold_kred_on_path("check_standard_atlas_path", "standard_atlas", ks, psr)
+    del psr, x, q
+    torch.cuda.empty_cache()
+    return flat, worst
+
+
+def phase_standard_two_set_path(counters, orders, ks, standard_two_set):
+    """standard_two_set of frame 0 onto frame 1 of grid_frames(2, 65,536)
+    with dense support (the template of 65,536 points is the support: the
+    self kernels at 65,536^2), sigma_LDDMM 0.1, sigma_data 0.1, noise_std
+    0.2, STD_ITERS iterations of nmax_per_iter 4.  Holds the energy oracle,
+    the self kernels on the path's own end state (hold_self_kernels) and its
+    data loss's kernel-sums (hold_kred_on_path); then a "rigid" standard
+    two-set on the same pair, STD_ITERS iterations: M, t, seconds."""
+    import torch
+    from difficp_torch.ops import rhs_self as rs
+
+    from difficp_torch.models.psr_standard import data_distance
+
+    xa, xb = grid_frames(2, STD_N)
+    with torch.no_grad():
+        e_start = float(data_distance(torch.as_tensor(xb, device="cuda"),
+                                      torch.as_tensor(xa, device="cuda"),
+                                      STD_MODEL["sigma_data"])) / STD_MODEL["noise_std"] ** 2
+    reset(*counters.values(), orders)
+    torch.cuda.reset_peak_memory_stats()
+    marks, callback = std_marks()
+    t0 = time.perf_counter()
+    psr, _ = standard_two_set(
+        xa, xb, {"type": "diffeomorphic", **STD_MODEL, "sigma_LDDMM": SIGMA},
+        {"support_LDDMM": {"scheme": "dense"}},
+        {"max_iterations": STD_ITERS, "nmax_per_iter": 4}, printstuff=False,
+        callback_function=callback, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    flat, evals, per_eval = std_launches(counters, psr.lcfg.nt)
+    ends = [t for _, t, _ in marks]
+    es = [e for _, _, e in marks]
+    emit({"phase": "standard_two_set_path", "n_points": STD_N, "support": "dense",
+          "sigma_lddmm": SIGMA, **STD_MODEL,
+          "seconds_per_outer_iteration": [b - a for a, b in zip([t0] + ends, ends)],
+          "seconds": t1 - t0, "E_start": e_start, "E_sequence": es,
+          "e_increase_events": psr.e_increase_events, "launches": flat, "loss_grad_evals": evals,
+          "launches_per_loss_grad": per_eval, "max_memory_allocated_bytes": peak})
+    if not (flat["ksum"] > 0 and flat["rhs_self_fwd"] > 0 and flat["rhs_self_bwd"] > 0):
+        fail("standard_two_set_path", f"a kernel of the path never launched: {flat}")
+    if not (all(map(math.isfinite, es)) and psr.e_increase_events == 0 and es[-1] < e_start
+            and bool(torch.isfinite(psr.y1).all())):
+        fail("standard_two_set_path", f"energy not finite, rising or not below the start "
+                                      f"{e_start}: {es}")
+    q = psr._frames(psr.q0)
+    mq = torch.ones(q.shape[:-1], device="cuda")
+    worst, _ = hold_self_kernels("check_standard_two_set_path", "standard_two_set", rs, q,
+                                 psr.a0.detach(), mq, rs.row_order(q, mq, SIGMA), seed=31,
+                                 sig=SIGMA)
+    worst["ksum"] = hold_kred_on_path("check_standard_two_set_path", "standard_two_set", ks,
+                                      psr)
+    del psr, q
+    torch.cuda.empty_cache()
+
+    reset(*counters.values())
+    t2 = time.perf_counter()
+    rigid, _ = standard_two_set(xa, xb, {"type": "rigid", "sigma_data": STD_MODEL["sigma_data"]},
+                                optim_options={"max_iterations": STD_ITERS, "nmax_per_iter": 4},
+                                printstuff=False, device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "standard_two_set_rigid", "n_points": STD_N, "M": rigid.M[0].tolist(),
+          "t": rigid.t[0].tolist(), "E": rigid.E, "e_increase_events": rigid.e_increase_events,
+          "seconds": time.perf_counter() - t2,
+          "launches": {k: v for k, v in flat_counts(counters).items() if v}})
+    if not (math.isfinite(rigid.E) and bool(torch.isfinite(rigid.M).all())):
+        fail("standard_two_set_rigid", "the rigid fit is not finite")
+    return flat, worst
+
+
+def phase_standard_route_agreement(backend, standard_atlas):
+    """The standard atlas at 3 frames of STD_ROUTE_N points (grid support at
+    GRID_SIGMA) forced onto the kernel route and then onto the dense route:
+    the E sequences within TOL_ROUTE_FE, entry by entry."""
+    import torch
+
+    t0 = time.perf_counter()
+    frames = grid_frames(3, STD_ROUTE_N)
+    seqs = {}
+    for mode, cv in (("kernel", "pallas"), ("dense", "dense")):
+        marks, callback = std_marks()
+        try:
+            psr, _ = standard_atlas(
+                frames, initial_template=0,
+                model_parameters={**STD_MODEL, "sigma_LDDMM": GRID_SIGMA},
+                numerical_options={"computversion": cv}, optim_options={"max_iterations": 2},
+                callback_function=callback, printstuff=False, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            backend.set_backend(None)
+        seqs[mode] = [e for before, _, e in marks if before] + [psr.E]
+    rel = rel_diff_fes(seqs["kernel"], seqs["dense"])
+    emit({"phase": "standard_route_agreement", "frames": 3, "n_points": STD_ROUTE_N,
+          "E_kernel": seqs["kernel"], "E_dense": seqs["dense"], "rel_diff": rel,
+          "tol": TOL_ROUTE_FE, "seconds": time.perf_counter() - t0})
+    if rel > TOL_ROUTE_FE:
+        fail("standard_route_agreement", "kernel and dense routes disagree")
+
+
 def main():
     import torch
 
@@ -3168,6 +3674,26 @@ def main():
         worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
     emit({"phase": "auto_lambda_done", "seconds": time.perf_counter() - t0})
 
+    # the standard algorithm (RKHS loss): KRed on ksum, the two entry points
+    from difficp_torch.api.standard_atlas import standard_atlas
+    from difficp_torch.api.standard_two_set import standard_two_set
+    worst_kred, kred_shapes = phase_check_kred(ks)
+    worst["ksum"] = [max(worst["ksum"][0], worst_kred[0]), max(worst["ksum"][1], worst_kred[1])]
+    timing_eta["ksum"] += kred_shapes
+    t0 = time.perf_counter()
+    std_atlas_launches, worst_std = phase_standard_atlas_path(counters, rs.orders, ks,
+                                                              standard_atlas)
+    emit({"phase": "standard_atlas_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    std_two_set_launches, worst_two = phase_standard_two_set_path(counters, rs.orders, ks,
+                                                                  standard_two_set)
+    emit({"phase": "standard_two_set_done", "seconds": time.perf_counter() - t0})
+    for name, (rel, ab) in [*worst_std.items(), *worst_two.items()]:
+        worst[name] = [max(worst[name][0], rel), max(worst[name][1], ab)]
+    phase_standard_route_agreement(backend, standard_atlas)
+    std_launches_by_path = {"standard_atlas_path": std_atlas_launches,
+                            "standard_two_set_path": std_two_set_launches}
+
     pr = "difficp_tpu/ops/pallas_reductions.py"
     sources = {"rhs_self": "difficp_torch/csrc/rhs_self.cu",
                "rhs_ext": "difficp_torch/csrc/rhs_ext.cu",
@@ -3189,6 +3715,9 @@ def main():
                             "multi_structure_path": multi_launches[name]}
         if name in auto_launches:
             launches_by_path["auto_lambda_path"] = auto_launches[name]
+        for path, counts in std_launches_by_path.items():
+            if counts.get(name):
+                launches_by_path[path] = counts[name]
         if name in dense_launches:
             launches_by_path["dense_main_path"] = dense_launches[name]
         entry = {
@@ -3236,13 +3765,15 @@ def main():
     for name, (source, rep, also) in eta_kernels.items():
         shapes = timing_eta[name]
         # the headline shape: the grid eta path's costliest call of the kernel
-        grid = [r for r in shapes
-                if not r["call"].startswith(("dense", "ring")) and "d = 3" not in r["call"]]
+        grid = [r for r in shapes if not r["call"].startswith(("dense", "ring", "standard"))
+                and "d = 3" not in r["call"]]
         t = max(grid, key=lambda r: r["ms"])
         by_path = {"grid_eta_path": grid_eta_launches[name],
                    "dense_eta_path": dense_eta_launches[name]}
         if name == "ksum":
             by_path.update({path["phase"]: path["launches"][name] for path in (ring, ring_eta)})
+            by_path.update({path: counts["ksum"] for path, counts in
+                            std_launches_by_path.items()})
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
             "also_replaces": also, "launches": grid_eta_launches[name],

@@ -9,11 +9,15 @@ then minimized over the momenta, and lambda = L_ref / H(q, p0).  At eta = 0
 above the dense pair limit, v2p's CG matvec and every Ralston stage of the
 shoots run the self RHS forward kernel, and each gradient its backward.
 
-``calibrate_noise_std`` (the standard algorithm's) waits for that algorithm.
+``calibrate_noise_std`` does the same for the standard algorithm's noise_std:
+a general-affine standard two-set gives the reference RKHS loss L_ref, and
+noise_std = sqrt(L_ref / H(q, p0)) after the same relaxed optimization on the
+RKHS loss (calibration.py:64-99 of the JAX package).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -93,3 +97,42 @@ def lambda_from_reference(ref: AffineReference, sigma_lddmm) -> LambdaCalibratio
 def calibrate_lambda_lddmm(x, x2, sigma_lddmm, device=None) -> float:
     """Predict lambda_LDDMM for diffICP registration of x onto x2."""
     return lambda_from_reference(affine_reference(x, x2, device), sigma_lddmm).lam
+
+
+def calibrate_noise_std(x, x2, sigma_lddmm, device=None) -> float:
+    """Predict noise_std for 'standard' diffeomorphic registration of the
+    template x onto the data x2 (the JAX package's calibration.py:64-99): a
+    general-affine standard_two_set at sigma_data = x2's intrinsic scale
+    gives L_ref; v2p (rcond 1e-2) gives start momenta for the affine
+    displacement, and H0_ref; noise_std = sqrt(L_ref / H(x, p0)) after the
+    classic Euler (nt = 10) optimization of H0_ref exp(L / L_ref) over the
+    momenta, the exponent clipped at 30."""
+    from difficp_torch.api.standard_two_set import standard_two_set
+    from difficp_torch.models.psr_standard import data_distance
+    from difficp_torch.utils.point_sets import intrinsic_scale
+
+    device = resolve_device(device)
+    xt, x2t = as_tensor(x, device), as_tensor(x2, device)
+    psr, _ = standard_two_set(
+        xt, x2t, {"type": "general_affine", "sigma_data": intrinsic_scale(x2t)},
+        optim_options={"max_iterations": 30, "convergence_tolerance": 1e-4},
+        printstuff=False, device=device)
+    l_ref = float(psr.E)
+
+    lcfg = lddmm_mod.make_config(sigma=sigma_lddmm, lambd=1.0, version="classic",
+                                 scheme="Euler", nt=10)
+    q = xt[None]
+    with torch.no_grad():
+        tx = psr.Registration().apply(xt)[None]
+        a0 = lddmm_mod.v2p(lcfg, q, tx - q, rcond=1e-2)
+        h0_ref = float(lddmm_mod.hamiltonian(lcfg, q, a0)[0])
+    y = x2t[None]
+
+    def exp_loss(pts):
+        loss = data_distance(pts, y, psr.data_sigma)
+        return h0_ref * torch.exp(torch.clamp(loss / l_ref, max=30.0))
+
+    res = lddmm_mod.optimize(lcfg, exp_loss, q, a0, tol=1e-3, nmax=20)
+    with torch.no_grad():
+        regl = float(lddmm_mod.hamiltonian(lcfg, q, res.p0)[0])
+    return math.sqrt(l_ref / regl)

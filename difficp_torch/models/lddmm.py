@@ -88,6 +88,11 @@ def hamiltonian(cfg: LDDMMConfig, q, p, qmask=None, order=None):
     return red.hamiltonian(q, p, cfg.sigma, cfg.eta, qmask, order)
 
 
+def mdivsum(cfg: LDDMMConfig, x, q, p, qmask=None, xmask=None):
+    """Sum of -div(v) over data points x, per frame (LDDMM.py:120-138)."""
+    return red.mdivsum(x, q, p, cfg.sigma, cfg.eta, qmask, xmask)
+
+
 class ShootState(NamedTuple):
     q: torch.Tensor
     p: torch.Tensor

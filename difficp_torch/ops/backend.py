@@ -9,10 +9,11 @@ Two routes with one contract:
 - ``kernel`` -- autograd Functions and ops over the hand-written CUDA
                 kernels: the fused self RHS and Hamiltonian
                 (``ops/rhs_self.py``), the external-point RHS and v_field
-                (``ops/rhs_ext.py``), the top-2 minimum (``ops/kmin2.py``) and,
-                for the gradcomponent model (eta != 0), the generic
-                kernel-sums (``ops/ksum.py``, ``ops/pair_poly.py``); used
-                above the limit, at any eta.  On a CPU tensor they take the
+                (``ops/rhs_ext.py``), the top-2 minimum (``ops/kmin2.py``),
+                the kernel-sums between two sets with their VJPs (kred,
+                kred_scal, grad_kred, mdivsum: ``ops/ksum.py``) and, for the
+                gradcomponent model (eta != 0), the generated kernel-sums
+                (``ops/pair_poly.py``); used above the limit, at any eta.  On a CPU tensor they take the
                 kernels' plain PyTorch versions, which stand in for the JAX
                 package's ``blockwise`` route until that module is ported.
 
@@ -127,21 +128,40 @@ def grad_kred(x, y, sigma, mask_y=None):
 
 
 def kred(x, y, b, sigma, mask_y=None, order=None):
-    """Kernel-sum convolution sum_j K(x_i - y_j) m_j b_j.  Above the limit
-    only the self sum kred(q, q, b) exists, as the self forward kernel's v
-    output (rows in ``order``, from ``row_order(x, sigma, mask_y)``), which also
-    zeroes rows with m_i = 0 (its one caller, ``solvers.kridge_solve_cg``,
-    overwrites those rows)."""
+    """Kernel-sum convolution sum_j K(x_i - y_j) m_j b_j (reference
+    kernel.py:138).  Above the limit the self sum kred(q, q, b) is the self
+    forward kernel's v output (rows in ``order``, from ``row_order(x, sigma,
+    mask_y)``), which also zeroes rows with m_i = 0 (its one caller,
+    ``solvers.kridge_solve_cg``, overwrites those rows) and takes no
+    gradient; between two sets it is the generic kernel-sum with its VJP (the
+    JAX package's kred_mm)."""
     if _use_dense(x.shape[-2], y.shape[-2]):
         return _dense.kred(x, y, b, sigma, mask_y)
     if x is not y:
-        raise NotImplementedError(
-            "kred between two point sets above the dense pair limit is not "
-            "ported yet: the kernel op layer has no kred_mm (no path runs it)")
+        return _ksum.kred(x, y, b, sigma, mask_y)
     m = _kernel._ones_mask(x) if mask_y is None else mask_y.contiguous()
     v, _, _ = _kernel.rhs_self_fwd(x.contiguous(), b.contiguous(), m, float(sigma),
                                    False, order=order)
     return v
+
+
+def kred_scal(x, y, d, sigma, mask_y=None):
+    """sum_j K(x_i - y_j) m_j d_j, scalar payload d (reference kernel.py:134);
+    above the limit the generic kernel-sum with its VJP, also when x is y (the
+    JAX package's kred_scal_mm): the standard algorithm's data_distance."""
+    if _use_dense(x.shape[-2], y.shape[-2]):
+        return _dense.kred_scal(x, y, d, sigma, mask_y)
+    return _ksum.kred_scal(x, y, d, sigma, mask_y)
+
+
+def mdivsum(x, q, p, sigma, eta, mask_q=None, mask_x=None):
+    """sum_i -div(v)(x_i) at data points x, per frame (LDDMM.py:120-138); the
+    shoot gets it fused in lddmm_rhs_* instead.  Above the limit the generated
+    kernel-sum over the ext logdet density, value and gradients (the JAX
+    package's make_mdivsum)."""
+    if _use_dense(q.shape[-2], x.shape[-2]):
+        return _dense.mdivsum(x, q, p, sigma, eta, mask_q, mask_x)
+    return _ksum.mdivsum(x, q, p, sigma, eta, mask_q, mask_x)
 
 
 def min_sqdist(x, y, mask_y=None):

@@ -15,7 +15,12 @@ One function carries every standalone pairwise reduction of the gradcomponent
 - ``mm_center`` -- the masked centroid that the payload tables are built
   around (``pallas_reductions._mm_center``);
 - ``grad_kred`` -- sum_j (grad K)(x_i - y_j) m_j with its VJP (the JAX
-  ``grad_kred_mm``).
+  ``grad_kred_mm``);
+- ``kred`` / ``kred_scal`` -- sum_j K(x_i - y_j) m_j b_j between two point
+  sets, vector or scalar payload, with its VJP (the JAX ``kred_mm`` /
+  ``kred_scal_mm``): the standard algorithm's ``data_distance``;
+- ``mdivsum`` -- sum_i -div(v)(x_i) at data points with its VJP, on the
+  generated pair polynomials (the JAX ``make_mdivsum``).
 
 The CUDA kernel is ``csrc/ksum.cu`` (the exponential tile contracted with the
 table on the tensor cores, wgmma in 3xTF32); its plain PyTorch version
@@ -364,3 +369,125 @@ def grad_kred(x, y, sigma, mask_y=None):
     """Kernel-route sum_j (grad K)(x_i - y_j) m_j, with autograd."""
     my = torch.ones(y.shape[:-1], dtype=y.dtype, device=y.device) if mask_y is None else mask_y
     return GradKRed.apply(x, y, my, float(sigma))
+
+
+# ---------------------------------------------------------------------------
+# KRed / KRedScal (reference kernel.py:134-138) with the hand-derived VJP
+# ---------------------------------------------------------------------------
+
+class KRed(torch.autograd.Function):
+    """sum_j K(x_i - y_j) m_j b_j -> (..., Nx, B), vector payload b (..., Ny,
+    B), the JAX ``kred_mm``.  With delta = x_i - y_j, u = 1/sigma^2 and the
+    cotangent g:
+
+        db_j = m_j sum_i K g_i                      (reverse kernel-sum)
+        dx_i = -u sum_j K m_j (g_i . b_j) delta     (forward, cols b, yc b)
+        dy_j = +u m_j sum_i K (g_i . b_j) delta     (reverse, cols g, xc g)
+
+    one ``ksum`` forward, and a ``ksum`` a direction backward, each only
+    where a gradient it gives is asked for; both sides are centred by the
+    masked centroid of y.  ``x`` and ``y`` may be one tensor (the self
+    term <fy, fy>): autograd then adds dx and dy.  my may be None."""
+
+    @staticmethod
+    def forward(ctx, x, y, b, my, sigma):
+        c = mm_center(y, _ones_mask(y) if my is None else my)
+        out = pairwise_ksum(x - c, y - c, b, sigma, my)
+        ctx.save_for_backward(x, y, b, my)
+        ctx.sigma = sigma
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, b, my = ctx.saved_tensors
+        sigma = ctx.sigma
+        need_x, need_y, need_b = ctx.needs_input_grad[:3]
+        d, nb = y.shape[-1], b.shape[-1]
+        c = mm_center(y, _ones_mask(y) if my is None else my)
+        xc, yc = x - c, y - c
+        u = 1.0 / (sigma * sigma)
+        dx = dy = db = None
+        if need_x:
+            # forward-direction table [b | yc_e b]
+            cols = torch.cat([b] + [yc[..., e:e + 1] * b for e in range(d)], -1)
+            a2 = pairwise_ksum(xc, yc, cols, sigma, my)
+            gb = _dot(g, a2[..., :nb])
+            dx = torch.stack([
+                -u * (xc[..., e] * gb - _dot(g, a2[..., nb * (1 + e):nb * (2 + e)]))
+                for e in range(d)], -1)
+        if need_y or need_b:
+            # reverse-direction table [g | xc_e g]
+            cols = torch.cat([g] + [xc[..., e:e + 1] * g for e in range(d)], -1)
+            a3 = pairwise_ksum(yc, xc, cols, sigma, None)
+            m = torch.ones_like(yc[..., 0]) if my is None else my
+            if need_b:
+                db = a3[..., :nb] * m[..., None]
+            if need_y:
+                bg = _dot(b, a3[..., :nb])
+                dy = torch.stack([
+                    u * m * (_dot(b, a3[..., nb * (1 + e):nb * (2 + e)]) - yc[..., e] * bg)
+                    for e in range(d)], -1)
+        return dx, dy, db, None, None
+
+
+def _ones_mask(y):
+    return torch.ones(y.shape[:-1], dtype=y.dtype, device=y.device)
+
+
+def kred(x, y, b, sigma, mask_y=None):
+    """Kernel-route sum_j K(x_i - y_j) m_j b_j between two point sets (or one
+    set twice), with autograd in x, y and b."""
+    return KRed.apply(x, y, b, mask_y, float(sigma))
+
+
+def kred_scal(x, y, d, sigma, mask_y=None):
+    """Kernel-route sum_j K(x_i - y_j) m_j d_j, scalar payload d (..., Ny),
+    the JAX ``kred_scal_mm``: ``kred`` over one column."""
+    return KRed.apply(x, y, d[..., None], mask_y, float(sigma))[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# mdivsum (reference LDDMM.py:120-138) on the generated pair polynomials
+# ---------------------------------------------------------------------------
+
+class MDivSum(torch.autograd.Function):
+    """sum over the data points x of -div(v)(x_i), per frame:
+
+        sum_ij k(x_i - q_j) m_i m_j [u p_j.(x_i - q_j) + eta u (u d2 - d)]
+
+    the JAX ``make_mdivsum``.  Forward: one kernel-sum over the x-side logdet
+    density ``dcx`` of the ext cross terms (``pair_poly.eval_polys``).
+    Backward: the generated ext backward (``pair_poly.rhs_ext_bwd_poly``)
+    with the vx cotangent 0 and the scalar cotangent as gc.  Both sides are
+    centred by the masked centroid of q."""
+
+    @staticmethod
+    def forward(ctx, x, q, p, mask_q, mask_x, sigma, eta):
+        from difficp_torch.ops import pair_poly as pp
+
+        c = mm_center(q, mask_q)
+        xc, qc = x - c, q - c
+        polys = {"dcx": pp._ext_fwd_polys(x.shape[-1], sigma, eta, True)["dcx"]}
+        xvals = pp._coords({"m": mask_x}, xc)
+        qvals = pp._coords({"m": mask_q}, qc, p)
+        out = pp.eval_polys(polys, xc, qc, xvals, qvals, sigma)["dcx"].sum(-1)
+        ctx.save_for_backward(x, q, p, mask_q, mask_x)
+        ctx.sigma, ctx.eta = sigma, eta
+        return out
+
+    @staticmethod
+    def backward(ctx, ghat):
+        from difficp_torch.ops import pair_poly as pp
+
+        x, q, p, mask_q, mask_x = ctx.saved_tensors
+        c = mm_center(q, mask_q)
+        dq, dp, dx = pp.rhs_ext_bwd_poly(q - c, p, x - c, mask_q, mask_x,
+                                         torch.zeros_like(x), ghat, ctx.sigma, ctx.eta)
+        return dx, dq, dp, None, None, None, None
+
+
+def mdivsum(x, q, p, sigma, eta, mask_q=None, mask_x=None):
+    """Kernel-route sum_i -div(v)(x_i) per frame, with autograd in x, q, p."""
+    mq = _ones_mask(q) if mask_q is None else mask_q
+    mx = _ones_mask(x) if mask_x is None else mask_x
+    return MDivSum.apply(x, q, p, mq, mx, float(sigma), float(eta))

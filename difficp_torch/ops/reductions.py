@@ -78,6 +78,19 @@ def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None):
     return vq, -gq, dcost
 
 
+def kbase(x, y, sigma, mask_y=None):
+    """sum_j K(x_i - y_j) m_j (reference kernel.py:131,178)."""
+    _, _, k = _kmat(x, y, sigma, mask_y)
+    return k.sum(-1)
+
+
+def kred_scal(x, y, d, sigma, mask_y=None):
+    """sum_j K(x_i - y_j) m_j d_j, scalar payload d (..., N) (reference
+    kernel.py:134,182)."""
+    _, _, k = _kmat(x, y, sigma, mask_y)
+    return (k @ d[..., None])[..., 0]
+
+
 def kred(x, y, b, sigma, mask_y=None):
     """sum_j K(x_i - y_j) m_j b_j, the kernel-sum convolution (reference
     kernel.py:138)."""
@@ -92,6 +105,61 @@ def grad_kred(x, y, sigma, mask_y=None):
     return -(k[..., None] * diff).sum(-2) / sigma**2
 
 
+def grad_kred_rev(x, y, d, sigma, mask_x=None):
+    """Y(j) = sum_i sum_e (grad_e K)(x_i - y_j) m_i d_i^e, the reversed-axis
+    sum (reference kernel.py:146,194)."""
+    diff, _, k = _kmat(x, y, sigma, None)
+    if mask_x is not None:
+        k = k * mask_x[..., :, None]
+    proj = (-diff * d[..., :, None, :]).sum(-1) / sigma**2
+    return (k * proj).sum(-2)
+
+
+def ddkred(x, y, b, sigma, mask_y=None):
+    """X(i, e) = sum_j (grad_e K)(x_i - y_j) m_j b_j^e, the diagonal
+    differential (reference kernel.py:150,198)."""
+    diff, _, k = _kmat(x, y, sigma, mask_y)
+    return (k[..., None] * -diff * b[..., None, :, :]).sum(-2) / sigma**2
+
+
+def gendk_red(x, y, b, c, sigma, mask_y=None):
+    """X(i) = sum_j (grad K)(x_i - y_j) m_j (c_i . b_j) (reference
+    kernel.py:154,202)."""
+    diff, _, k = _kmat(x, y, sigma, mask_y)
+    dots = c @ b.transpose(-1, -2)
+    return ((k * dots)[..., None] * -diff).sum(-2) / sigma**2
+
+
+def hessk_red(x, y, b, c, sigma, mask_y=None):
+    """X(i) = sum_j (Hess K)(x_i - y_j) m_j (c_i - b_j)
+           = sum_j ([(x_i - y_j).(c_i - b_j)] (x_i - y_j) / s^4
+                    - (c_i - b_j) / s^2) K m_j
+    (reference kernel.py:158,284-286)."""
+    diff, _, k = _kmat(x, y, sigma, mask_y)
+    cb = c[..., :, None, :] - b[..., None, :, :]
+    proj = (diff * cb).sum(-1)
+    term = diff * proj[..., None] / sigma**4 - cb / sigma**2
+    return (k[..., None] * term).sum(-2)
+
+
+def lapk_red(x, y, sigma, mask_y=None):
+    """X(i) = sum_j (Lap K)(x_i - y_j) m_j (reference kernel.py:163,206,
+    LapK kernel.py:265-267)."""
+    _, d2, k = _kmat(x, y, sigma, mask_y)
+    dim = x.shape[-1]
+    return (k * (d2 / sigma**4 - dim / sigma**2)).sum(-1)
+
+
+def gradlapk_red(x, y, sigma, mask_y=None):
+    """X(i) = sum_j (grad Lap K)(x_i - y_j) m_j
+           = sum_j (|z|^2 / s^6 - (D + 2) / s^4) (y_j - x_i) K m_j,
+    z = x_i - y_j (reference kernel.py:167,289-292)."""
+    diff, d2, k = _kmat(x, y, sigma, mask_y)
+    dim = x.shape[-1]
+    coef = k * (d2 / sigma**6 - (dim + 2) / sigma**4)
+    return (coef[..., None] * -diff).sum(-2)
+
+
 def v_field(x, q, p, sigma, eta, mask_q=None):
     """RKHS vector field at points x (LDDMM.py:100-116):
     v(x_i) = sum_j [ p_j K(x_i - q_j) - eta (grad K)(x_i - q_j) ]."""
@@ -100,6 +168,21 @@ def v_field(x, q, p, sigma, eta, mask_q=None):
     if eta != 0.0:
         out = out - eta * (k[..., None] * -diff).sum(-2) / sigma**2
     return out
+
+
+def mdivsum(x, q, p, sigma, eta, mask_q=None, mask_x=None):
+    """sum over the data points x of -div(v)(x_i), per frame (reference
+    LDDMM.py:120-138, ``(p * GradKRed(q, x)).sum() + eta *
+    LapKRed(q, x).sum()`` there): reductions over the data x_j for each
+    support point q_i."""
+    diff, d2, k = _kmat(q, x, sigma, mask_x)
+    if mask_q is not None:
+        k = k * mask_q[..., :, None]
+    grad_term = (k[..., None] * -diff * p[..., :, None, :]).sum((-3, -2, -1)) / sigma**2
+    if eta == 0.0:
+        return grad_term
+    dim = q.shape[-1]
+    return grad_term + eta * (k * (d2 / sigma**4 - dim / sigma**2)).sum((-2, -1))
 
 
 def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None):

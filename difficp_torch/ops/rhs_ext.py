@@ -444,7 +444,8 @@ class RHSExt(torch.autograd.Function):
     ``make_rhs_ext``).  At eta = 0, forward: the self kernel on the support
     with logdet off, and the ext forward kernel; backward: the self backward
     kernel with a zero dcost cotangent for the support-support terms, and the
-    dx and dq/dp kernels for the cross terms, summed; the self kernels and
+    dx and dq/dp kernels for the cross terms, summed (dx alone where
+    neither q nor p takes a gradient); the self kernels and
     the dq/dp kernel with the support's rows in ``order``, the dx kernel with
     the data rows in ``xorder`` (``rhs_self.row_order`` of (q, mq) and
     ``data_order`` of (x, mx), each computed per call when None).  At eta != 0 the routes of
@@ -482,8 +483,12 @@ class RHSExt(torch.autograd.Function):
             dq2, dp2, dx = pair_poly.rhs_ext_bwd_poly(
                 qc, p, xc, mq, mx, gx, gc if wl else zero_c, sigma, ctx.eta)
             return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None, None, None
-        dq1, dp1 = rhs_self.rhs_self_bwd(q, p, mq, gv, gw, zero_c, sigma, False, ctx.order)
         dx = rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, wl, ctx.xorder)
+        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
+            # a frozen support (the standard algorithm's Template_opt): only
+            # the data points take a gradient
+            return None, None, dx, None, None, None, None, None, None, None
+        dq1, dp1 = rhs_self.rhs_self_bwd(q, p, mq, gv, gw, zero_c, sigma, False, ctx.order)
         dq2, dp2 = rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, wl, ctx.order)
         return dq1 + dq2, dp1 + dp2, dx, None, None, None, None, None, None, None
 

@@ -10,6 +10,11 @@ memory a dict of the ``LBFGSMemory`` fields.  The support travels as
 ``support_scheme`` and ``rho`` beside the ``q0`` / ``qmask`` arrays, so a
 grid-support state continues with the same grid.
 
+``load_std_state`` / ``std_state_to_numpy`` do the same for the standard
+algorithm's ``DiffPSRStd`` (template, weights, support, momenta, warped
+templates and the L-BFGS lanes of Reg_opt and of each structure's
+Template_opt) and ``AffinePSRStd`` (template, weights, M, t and the lanes).
+
 ``twoset_out_from_numpy`` takes the state between two point-sharded two-set
 steps (the JAX package's ``TwosetStepOut``, gathered) to one rank's
 ``parallel.twoset.TwosetStepOut``.
@@ -17,6 +22,7 @@ steps (the JAX package's ``TwosetStepOut``, gathered) to one rank's
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from difficp_torch.models.gmm import GMMState
@@ -132,3 +138,89 @@ def psr_state_to_numpy(psr) -> dict:
     out["FE"] = psr.FE
     return out
 
+
+
+_STD_ARRAYS = ("q0", "a0", "y1", "M", "t")
+_STD_LANES = ("_reg_alpha", "_reg_alpha_qn")
+_STD_TMPL_LANES = ("_tmpl_alpha", "_tmpl_alpha_qn")
+
+
+def _lane_memory(mem: dict, device) -> LBFGSMemory:
+    """A memory dict with or without its lane axis (the JAX package keeps one
+    lane's memory unbatched: S (m, n), pos and count scalars)."""
+    if mem["S"].ndim == 2:
+        mem = {"S": mem["S"][None], "Y": mem["Y"][None], "rho": mem["rho"][None],
+               "pos": np.reshape(mem["pos"], (1,)), "count": np.reshape(mem["count"], (1,))}
+    return memory_from_numpy(mem, device)
+
+
+def load_std_state(psr, arrays: dict):
+    """Load a mid-run state into a port ``DiffPSRStd`` or ``AffinePSRStd`` of
+    the same shapes.
+
+    ``arrays`` keys, each optional (None = cold): ``y0`` and ``w0`` (lists over
+    structures), the arrays of ``_STD_ARRAYS`` (a diffeomorphic state's
+    support q0 (M, D), momenta a0 and warped templates y1 (K, Ny, D); an
+    affine one's M and t), ``support_scheme`` and ``rho``, the lanes
+    ``_reg_alpha`` and ``_reg_alpha_qn`` (K,), ``_tmpl_alpha`` and
+    ``_tmpl_alpha_qn`` (lists over structures of one lane each),
+    ``_reg_memory`` (a dict of the LBFGSMemory fields), ``_tmpl_mem`` (a list
+    of such dicts or None, with or without the lane axis), ``regloss`` (K,),
+    ``dataloss`` (K, S) and ``E``.  The threaded entries (value, grad) are not
+    carried: the next step re-evaluates them."""
+    dev = psr.device
+    if arrays.get("y0") is not None:
+        psr.y0 = [as_tensor(y, dev) for y in arrays["y0"]]
+    if arrays.get("w0") is not None:
+        psr.w0 = [None if w is None else as_tensor(w, dev) for w in arrays["w0"]]
+    for name in _STD_ARRAYS:
+        if arrays.get(name) is not None:
+            setattr(psr, name, as_tensor(arrays[name], dev))
+    for name in _SUPPORT:
+        if name in arrays:
+            setattr(psr, name, arrays[name])
+    for name in _STD_LANES:
+        val = arrays.get(name)
+        setattr(psr, name, None if val is None else as_tensor(val, dev))
+    for name in _STD_TMPL_LANES:
+        val = arrays.get(name)
+        setattr(psr, name, None if val is None else [
+            None if v is None else as_tensor(v, dev).reshape(1) for v in val])
+    mem = arrays.get("_reg_memory")
+    psr._reg_memory = None if mem is None else memory_from_numpy(mem, dev)
+    mems = arrays.get("_tmpl_mem")
+    psr._tmpl_mem = None if mems is None else [
+        None if m is None else _lane_memory(m, dev) for m in mems]
+    psr._reg_vg = psr._tmpl_vg = None
+    if arrays.get("regloss") is not None:
+        psr.regloss = np.asarray(arrays["regloss"], np.float64)
+    if arrays.get("dataloss") is not None:
+        psr.dataloss = np.asarray(arrays["dataloss"], np.float64)
+    if "E" in arrays:
+        psr.E = None if arrays["E"] is None else float(arrays["E"])
+    return psr
+
+
+def std_state_to_numpy(psr) -> dict:
+    """The state ``load_std_state`` reads, as numpy arrays."""
+    host = lambda t: None if t is None else t.detach().cpu().numpy()  # noqa: E731
+
+    def memory(mem):
+        return None if mem is None else {f: host(getattr(mem, f)) for f in LBFGSMemory._fields}
+
+    out = {"y0": [host(y) for y in psr.y0],
+           "w0": [host(w) for w in psr.w0] if psr.template_weights else None}
+    for name in _STD_ARRAYS + _STD_LANES:
+        out[name] = host(getattr(psr, name, None))
+    for name in _SUPPORT:
+        out[name] = getattr(psr, name, None)
+    for name in _STD_TMPL_LANES:
+        val = getattr(psr, name, None)
+        out[name] = None if val is None else [host(v) for v in val]
+    out["_reg_memory"] = memory(getattr(psr, "_reg_memory", None))
+    mems = getattr(psr, "_tmpl_mem", None)
+    out["_tmpl_mem"] = None if mems is None else [memory(m) for m in mems]
+    out["regloss"] = np.asarray(psr.regloss, np.float64)
+    out["dataloss"] = np.asarray(psr.dataloss, np.float64)
+    out["E"] = psr.E
+    return out

@@ -1046,3 +1046,43 @@ def test_random_p_rff_cg_above_the_pair_limit(cuda):
     kb = backend.kred(q, q, b, cfg.sigma, mask) * mask[..., None] + 10.0 * b
     u = rhs["u"]
     assert float((kb - u).norm() / u.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["two_sets", "masked", "self", "scalar_weights"])
+def test_kred_matches_plain(cuda, case):
+    """KRed (ops/ksum.py: one ksum forward, one a direction backward) on the
+    card against the same Function with ksum's plain version in float64 on
+    the same float32 inputs: two frames, values within TOL_FWD, the gradients
+    in x, y and b within TOL_BWD of their largest entry; for x is y the one
+    tensor's dx + dy (the standard algorithm's <fy, fy>), and a scalar
+    payload whose gradient is the template weights' (kred_scal)."""
+    from difficp_torch.ops import ksum as KS
+
+    rng = np.random.default_rng(41)
+    x = rng.uniform(size=(2, 1001, 2))
+    y = x if case in ("self", "scalar_weights") else rng.uniform(size=(2, 1503, 2))
+    ncols = 1 if case == "scalar_weights" else 3
+    b = rng.uniform(0.5, 1.5, size=(2, y.shape[1], ncols))
+    my = (rng.uniform(size=(2, y.shape[1])) > 0.2).astype(np.float64) if case == "masked" else None
+    cot = rng.normal(size=(2, 1001, ncols))
+
+    def run(dtype, device):
+        t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+        xs = t(x).requires_grad_(True)
+        ys = xs if y is x else t(y).requires_grad_(True)
+        bs = t(b).requires_grad_(True)
+        out = KS.kred(xs, ys, bs, SIG, None if my is None else t(my))
+        wrt = [xs, bs] if y is x else [xs, ys, bs]
+        return [out.detach(), *torch.autograd.grad((out * t(cot)).sum(), wrt)]
+
+    got = run(torch.float32, cuda)
+    torch.cuda.synchronize()
+    kernel = KS.ksum
+    KS.ksum = KS.ksum_reference
+    try:
+        ref = run(torch.float64, cuda)
+    finally:
+        KS.ksum = kernel
+    _close(got[0], ref[0], TOL_FWD)
+    for g, r in zip(got[1:], ref[1:]):
+        _close(g, r, TOL_BWD)

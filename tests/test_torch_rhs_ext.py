@@ -242,13 +242,14 @@ def test_backend_routes_for_external_points():
     """Dense at or under the pair limit (on m (m + n) pairs for the ext RHS),
     the kernel route when forced: the same values, at eta = 0 and eta != 0;
     v_field and kred(q, q) through the kernels' plain versions; kred between
-    two sets, which no path runs above the limit, raises."""
+    two sets through the generic kernel-sum's plain version."""
     x, q, p, mx, mq, *_ = _inputs(64, 20, 2, seed=2)
     xt, qt, pt, mxt, mqt = (t[None] for t in _t(x, q, p, mx, mq))
     try:
         dense = TB.lddmm_rhs_ext(qt, pt, xt, SIG, 0.0, True, mqt, mxt)
         v_dense = TB.v_field(xt, qt, pt, SIG, 0.0, mqt)
         k_dense = TB.kred(qt, qt, pt, SIG, mqt)
+        kx_dense = TB.kred(xt, qt, pt, SIG, mqt)
         TB.set_backend("kernel")
         kern = TB.lddmm_rhs_ext(qt, pt, xt, SIG, 0.0, True, mqt, mxt)
         for g, r in zip(kern, dense):
@@ -265,8 +266,8 @@ def test_backend_routes_for_external_points():
         for g, r in zip(kern_eta[0], dense_eta[0]):
             _close(g, r, 1e-5)
         _close(kern_eta[1], dense_eta[1], 1e-5)
-        with pytest.raises(NotImplementedError, match="kernel op layer"):
-            TB.kred(xt, qt, pt, SIG, mqt)
+        TB.set_backend("kernel")
+        _close(TB.kred(xt, qt, pt, SIG, mqt), kx_dense, 1e-5)
     finally:
         TB.set_backend(None)
     # the auto route follows the JAX package's pair count m (m + n_x)
