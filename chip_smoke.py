@@ -151,6 +151,26 @@ Phases, each printing JSON lines with its seconds:
  30. standard route agreement  the standard atlas at 3 x 2,048 points on
                  the kernel route and on the dense route: E sequences within
                  5e-3.
+ 31. offload atlas path  HostOffloadAtlas (models/offload.py) on the grid
+                 main path's problem at 40 frames of 65,536 points held in
+                 pinned host memory, streamed in chunks of 10 frames, run(2):
+                 seconds, FE, host-device bytes an outer iteration, launches
+                 a loss+grad, peak device memory;
+ 32. offload agreement  the same at 10 frames in chunks of 5 against
+                 DiffPSR with all 10 on the card (em_tol = 0): FE within
+                 5e-3, warped points at rtol 5e-2 / atol 5e-3 after the
+                 first outer iteration, both peaks, and the 40-frame peak at
+                 most 1.25 times DiffPSR's;
+ 33. atlas step path  the frame-parallel atlas step (parallel/atlas.py) at
+                 world size 1 over NCCL at 10 x 65,536 on the grid: 3 steps
+                 threading the step sizes, 3 with the curvature memory, the
+                 first against the single-device alternation within 5e-3;
+ 34. blockwise path  the blockwise route (ops/blockwise.py) forced: the
+                 grid route agreement's workload against the kernel route,
+                 one loss+grad of run_large's dense problem at 65,536 points
+                 against the kernel route (peak under 8 GiB), and the
+                 "accurate" backward (the blockwise VJP) against the
+                 backward kernels at the grid state.
 Each main path is driven with the launch counters set to 0 just before it
 and read just after; the paths print the free energies of earlier runs bit
 for bit or fail, and the eta = 0 paths stay within 5e-3 of those the direct
@@ -518,15 +538,14 @@ def grid_frames(k, n, dim=2):
     return frames
 
 
-def grid_psr(k, n, version="hybrid", scheme="grid"):
+def grid_problem(k, n, version="hybrid"):
     """bench.py's atlas workload (bench.py:82-105) at k frames of n points:
-    C = 20 GMM components from 20 points of frame 0, LDDMM ("hybrid", or
-    "logdet" for the gradcomponent model) at sigma = 0.05, lambda = 500,
-    nt = 10 Euler, grid support with rho = 1 (or the decimation of each
-    frame, scheme="decim", at the same cover radius)."""
+    the frames, C = 20 GMM components from 20 points of frame 0, LDDMM
+    ("hybrid", or "logdet" for the gradcomponent model) at sigma = 0.05,
+    lambda = 500, nt = 10 Euler: (frames, GMM state, its config, the LDDMM
+    config)."""
     import numpy as np
     from difficp_torch.models import gmm, lddmm
-    from difficp_torch.models.psr import DiffPSR
 
     x = grid_frames(k, n)
     mu0 = x[0][np.random.default_rng(0).integers(0, n, 20)]
@@ -535,6 +554,16 @@ def grid_psr(k, n, version="hybrid", scheme="grid"):
                          optimize_eta0=False)
     lcfg = lddmm.make_config(sigma=GRID_SIGMA, lambd=5e2, version=version, nt=10,
                              scheme="Euler")
+    return x, state, gcfg, lcfg
+
+
+def grid_psr(k, n, version="hybrid", scheme="grid"):
+    """DiffPSR on grid_problem(k, n, version) with grid support at rho = 1
+    (or the decimation of each frame, scheme="decim", at the same cover
+    radius)."""
+    from difficp_torch.models.psr import DiffPSR
+
+    x, state, gcfg, lcfg = grid_problem(k, n, version)
     psr = DiffPSR(x, state, gcfg, lcfg, device="cuda")
     psr.printstuff = False
     psr.set_support_scheme(scheme, rho=1.0)
@@ -2022,6 +2051,11 @@ def hold_fes(phase, fes, refs, before):
 def loss_grad(psr):
     """The registration objective Reg_opt descends, at psr's momenta a0 and
     its current targets: the loss per frame and its gradient (K, M, D)."""
+    return timed_loss_grad(psr)[:2]
+
+
+def timed_loss_grad(psr):
+    """loss_grad(psr) and the seconds of its forward and of its backward."""
     import torch
 
     from difficp_torch.models import lddmm
@@ -2029,12 +2063,17 @@ def loss_grad(psr):
 
     ext = psr.support_scheme is not None
     dataloss = _frame_quad_dataloss(psr.y, psr._sig2_vector(), psr.xmask, psr.ptw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     lossfn = lddmm._make_lossfn_aux(psr.lcfg, dataloss, psr.q0, psr.x0 if ext else None,
                                     psr.qmask, psr.xmask if ext else None)
     p = psr.a0.detach().clone().requires_grad_(True)
     loss, _ = lossfn(p)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     (grad,) = torch.autograd.grad(loss.sum(), p)
-    return loss.detach(), grad
+    torch.cuda.synchronize()
+    return loss.detach(), grad, t1 - t0, time.perf_counter() - t1
 
 
 def hold_end_state(phase, psr, float64_route):
@@ -3546,6 +3585,390 @@ def phase_standard_route_agreement(backend, standard_atlas):
         fail("standard_route_agreement", "kernel and dense routes disagree")
 
 
+# the host-offload atlas, the frame-parallel atlas step and the blockwise
+# route: the grid main path's problem at 40 frames streamed to the card in
+# chunks of 10, and at 10 frames in chunks of 5 against DiffPSR holding all
+# 10 (FE within TOL_ROUTE_FE, the warped points at tests/test_offload.py's
+# bars, rtol 5e-2 / atol 5e-3); the offload's peak device memory at most
+# OFFLOAD_PEAK_RATIO times that DiffPSR's (it holds one chunk of frames as
+# DiffPSR holds its frames); the blockwise route's loss+grad at 65,536 dense
+# points under BLOCKWISE_PEAK_BYTES (one 1,024-column tile's (M, tile, D)
+# float32 temporaries are 0.54 GB there)
+OFFLOAD_FRAMES = 40
+OFFLOAD_CHUNK = 10
+OFFLOAD_AGREE = (10, 5)  # frames, chunk
+OFFLOAD_PEAK_RATIO = 1.25
+TOL_X1 = (5e-2, 5e-3)  # rtol, atol
+BLOCKWISE_PEAK_BYTES = 8 * 2**30
+
+
+def eta0_launches(counters, nt):
+    """The eta = 0 kernels' launches of a run, its loss+grad evaluations (one
+    self backward a step) and the launches per evaluation."""
+    flat = {key: v for key, v in flat_counts(counters).items() if key in ETA0_KERNELS}
+    evals = flat["rhs_self_bwd"] / nt
+    return flat, evals, {key: v / evals for key, v in flat.items()} if evals else {}
+
+
+def x1_agreement(x1, ref):
+    """|x1 - ref| / (atol + rtol |ref|) at TOL_X1, at most 1 where the warped
+    points agree at tests/test_offload.py's bars: its largest value, that of
+    each frame and the number of coordinates above 1."""
+    rtol, atol = TOL_X1
+    ref = ref.double()
+    r = ((x1.double() - ref).abs() / (atol + rtol * ref.abs())).flatten(1)
+    return {"worst_over_tol": float(r.max()), "frames_worst": r.amax(1).tolist(),
+            "coordinates_over_tol": int((r > 1).sum())}
+
+
+def phase_offload_atlas_path(counters, orders):
+    """HostOffloadAtlas on the grid main path's problem at OFFLOAD_FRAMES
+    frames of 65,536 points, grid support (rho = 1), chunks of
+    OFFLOAD_CHUNK frames, run(2) at GRID_RUN's budgets: set-up and seconds
+    an outer iteration, the FE sequence, the grid's M, launches a loss+grad,
+    host-device bytes an outer iteration and the peak device memory."""
+    import torch
+    from difficp_torch.models.offload import HostOffloadAtlas
+
+    k, n = OFFLOAD_FRAMES, 65536
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x, state, gcfg, lcfg = grid_problem(k, n)
+    atlas = HostOffloadAtlas(x, state, gcfg, lcfg, chunk_frames=OFFLOAD_CHUNK, device="cuda")
+    atlas.set_support_scheme("grid", rho=1.0)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    reset(*counters.values(), orders)
+    fes, iter_s, h2d, d2h = [], [], [], []
+    for _ in range(2):
+        b_up, b_down = atlas.bytes_h2d, atlas.bytes_d2h
+        t1 = time.perf_counter()
+        fes += [float(f) for f in atlas.run(1, **GRID_RUN)]
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t1)
+        h2d.append(atlas.bytes_h2d - b_up)
+        d2h.append(atlas.bytes_d2h - b_down)
+    flat, evals, per_eval = eta0_launches(counters, lcfg.nt)
+    peak = torch.cuda.max_memory_allocated()
+    x1 = atlas.x1[:k]
+    rec = {"phase": "offload_atlas_path", "frames": k, "n_points": n,
+           "chunk_frames": OFFLOAD_CHUNK, "grid_M": int(atlas.q0.shape[1]),
+           "sigma_lddmm": GRID_SIGMA, "setup_seconds": setup,
+           "seconds_per_outer_iteration": iter_s, "FE_sequence": fes,
+           "fe_increase_events": atlas.fe_increase_events,
+           "host_to_device_bytes_per_outer_iteration": h2d,
+           "device_to_host_bytes_per_outer_iteration": d2h, "launches": flat,
+           "loss_grad_evals": evals, "launches_per_loss_grad": per_eval,
+           "row_orders": orders["row_order"], "max_memory_allocated_bytes": peak,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not all(flat[key] > 0 for key in ETA0_KERNELS if key != "kmin2"):
+        fail("offload_atlas_path", f"a kernel of the path never launched: {flat}")
+    if flat["kmin2"]:
+        fail("offload_atlas_path", "the offload atlas ran a coverage pass")
+    if not (all(map(math.isfinite, fes)) and monotone(fes) and atlas.fe_increase_events == 0):
+        fail("offload_atlas_path", f"free energy not finite or not monotone: {fes}")
+    if not bool(torch.isfinite(x1).all()):
+        fail("offload_atlas_path", "warped points not finite")
+    return rec
+
+
+def phase_offload_agreement(counters, offload_peak):
+    """The grid main path's problem at 10 frames, em_tol = 0 and GRID_RUN's
+    other budgets, 2 outer iterations: HostOffloadAtlas in chunks of 5
+    against DiffPSR with all 10 frames on the card (GMM_opt then Reg_opt,
+    the latter with its coverage pass): FE within TOL_ROUTE_FE after each
+    outer iteration, warped points at TOL_X1 after the first (after the
+    second only printed: there DiffPSR with its Reg_opt in chunks of 5
+    frames, the same work batched otherwise, already differs from DiffPSR
+    by more than TOL_X1 allows); both peaks, and offload_atlas_path's peak
+    (``offload_peak``, 40 frames in chunks of 10) at most
+    OFFLOAD_PEAK_RATIO times this DiffPSR's."""
+    import torch
+    from difficp_torch.models.offload import HostOffloadAtlas
+    from difficp_torch.models.psr import DiffPSR
+
+    (k, chunk), n = OFFLOAD_AGREE, 65536
+    run_kw = dict(GRID_RUN, em_tol=0.0)
+    x, state, gcfg, lcfg = grid_problem(k, n)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    atlas = HostOffloadAtlas(x, state, gcfg, lcfg, chunk_frames=chunk, device="cuda")
+    atlas.set_support_scheme("grid", rho=1.0)
+    fes_off, x1_off = [], []
+    for _ in range(2):
+        fes_off += [float(f) for f in atlas.run(1, **run_kw)]
+        x1_off.append(atlas.x1[:k].cuda())
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    off_peak = torch.cuda.max_memory_allocated()
+    off_events = atlas.fe_increase_events
+    del atlas
+    torch.cuda.empty_cache()
+
+    # DiffPSR twice: with all 10 frames in one lockstep Reg_opt (its default,
+    # held against), and with Reg_opt(frame_chunk=chunk), the offload's lanes
+    # a call, whose kernels cut their work as for the offload's chunks: the
+    # two DiffPSR runs apart measure how far the optimizer carries the
+    # rounding of another batching
+    fes_psr, x1_psr, events, psr_s, psr_peak = {}, {}, {}, {}, {}
+    for mode, fc in (("all", None), ("chunked", chunk)):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        psr = DiffPSR(x, state, gcfg, lcfg, device="cuda")
+        psr.printstuff = False
+        psr.set_support_scheme("grid", rho=1.0)
+        reset(*counters.values())
+        fes_psr[mode], x1_psr[mode] = [], []
+        for _ in range(2):
+            psr.GMM_opt(max_iterations=run_kw["max_em"], tol=0.0)
+            psr.Reg_opt(tol=run_kw["reg_tol"], nmax=run_kw["reg_nmax"],
+                        inner=run_kw["reg_inner"], ls_steps=run_kw["reg_ls"], frame_chunk=fc)
+            fes_psr[mode].append(psr.FE)
+            x1_psr[mode].append(psr.x1)
+        torch.cuda.synchronize()
+        psr_s[mode] = time.perf_counter() - t1
+        psr_peak[mode] = torch.cuda.max_memory_allocated()
+        events[mode] = psr.fe_increase_events
+        if mode == "all":
+            flat, evals, _ = eta0_launches(counters, lcfg.nt)
+        del psr
+        torch.cuda.empty_cache()
+    fe_rel = [abs(a - b) / abs(b) for fes in fes_psr.values() for a, b in zip(fes_off, fes)]
+    x1_agree = {mode: [x1_agreement(a, b) for a, b in zip(x1_off, x1_psr[mode])]
+                for mode in x1_psr}
+    x1_agree["diffpsr_chunked_vs_all"] = [x1_agreement(a, b) for a, b in
+                                          zip(x1_psr["chunked"], x1_psr["all"])]
+    x1_worst = x1_agree["all"][0]["worst_over_tol"]
+    ratio = offload_peak / psr_peak["all"]
+    rec = {"phase": "offload_agreement", "frames": k, "n_points": n, "chunk_frames": chunk,
+           "FE_offload": fes_off, "FE_diffpsr": fes_psr, "FE_rel_diff": fe_rel,
+           "tol": TOL_ROUTE_FE, "x1_agreement_by_iteration": x1_agree, "x1_tol": TOL_X1,
+           "fe_increase_events": [off_events, events],
+           "offload_seconds": off_s, "diffpsr_seconds": psr_s,
+           "offload_max_memory_allocated_bytes": off_peak,
+           "diffpsr_max_memory_allocated_bytes": psr_peak,
+           "offload_atlas_path_peak_bytes": offload_peak, "peak_ratio": ratio,
+           "peak_ratio_limit": OFFLOAD_PEAK_RATIO, "diffpsr_launches": flat,
+           "diffpsr_loss_grad_evals": evals}
+    emit(rec)
+    if off_events or any(events.values()):
+        fail("offload_agreement", "a free-energy increase")
+    if max(fe_rel) > TOL_ROUTE_FE:
+        fail("offload_agreement", f"offload FE {fes_off} against DiffPSR's {fes_psr}")
+    if not x1_worst <= 1.0:
+        fail("offload_agreement", "warped points after the first outer iteration differ: "
+                                  f"{x1_worst} of the tolerance")
+    if ratio > OFFLOAD_PEAK_RATIO:
+        fail("offload_agreement", f"the offload's peak is {ratio} times DiffPSR's")
+    return rec
+
+
+def phase_atlas_step_path(counters):
+    """make_atlas_train_step at world size 1 over NCCL on the grid main
+    path's problem at 10 frames of 65,536 points, the data as external
+    points of the grid (q0 the grid of all frames, for every frame),
+    RING_STEP's budgets: 3 steps threading the step sizes, then 3 more with
+    the curvature memory carried; the first step's FE against the
+    single-device alternation (em_targets, then lddmm.optimize over all
+    frames) within TOL_ROUTE_FE; both FE sequences monotone."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from difficp_torch.models import lddmm
+    from difficp_torch.parallel import (frame_range, init_distributed, make_atlas_train_step,
+                                        zero_atlas_memory)
+    from difficp_torch.utils.io import pad_frames
+    from difficp_torch.utils.point_sets import grid_support
+
+    k, n = 10, 65536
+    t0 = time.perf_counter()
+    x, state, gcfg, lcfg = grid_problem(k, n)
+    pf = pad_frames(x, "cuda")
+    pts = grid_support(np.concatenate(x), GRID_SIGMA)
+    q0 = torch.as_tensor(pts, device="cuda").expand(k, *pts.shape).contiguous()
+    qmask = torch.ones(q0.shape[:-1], device="cuda")
+    budgets = dict(em_iters=RING_STEP["em_iters"], reg_nmax=RING_STEP["reg_nmax"],
+                   tol=RING_STEP["tol"], reg_inner=RING_STEP["reg_inner"],
+                   reg_ls=RING_STEP["reg_ls"], use_ext=True)
+    group, size, _ = init_distributed("cuda")
+    try:
+        backend_name = dist.get_backend(group)
+        fr = frame_range(k, group)
+        x0, xm, q0r, qmr = (t[fr].contiguous() for t in (pf.x, pf.mask, q0, qmask))
+        step = make_atlas_train_step(gcfg, lcfg, group, **budgets)
+        step_mem = make_atlas_train_step(gcfg, lcfg, group, carry_memory=True, **budgets)
+        torch.cuda.synchronize()
+        reset(*counters.values())
+        torch.cuda.reset_peak_memory_stats()
+        st, a0, x1, al = state, torch.zeros_like(q0r), x0, torch.zeros(x0.shape[0], device="cuda")
+        fes, fes_mem, step_s = [], [], []
+        mem = None
+        for i in range(6):
+            t1 = time.perf_counter()
+            if i < 3:
+                out = step(st, q0r, a0, x0, x1, qmr, xm, al)
+            else:
+                mem = zero_atlas_memory(a0) if mem is None else mem
+                out = step_mem(st, q0r, a0, x0, x1, qmr, xm, al, mem)
+                mem = out.memory
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            st, a0, x1, al = out.gmm, out.a0, out.x1, out.alpha
+            (fes if i < 3 else fes_mem).append(float(out.fe))
+        flat, evals, per_eval = eta0_launches(counters, lcfg.nt)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+
+    # the first step through the single-device alternation
+    st1, y, cfe, ptw = em_targets(gcfg, state, pf.x.reshape(-1, 2), pf.mask.reshape(-1),
+                                  RING_STEP["em_iters"])
+    y, ptw, sig2 = y.reshape(pf.x.shape), ptw.reshape(pf.mask.shape), st1.sigma ** 2
+
+    def dataloss(pts_):
+        return ((pf.mask * ptw)[..., None] * (pts_ - y) ** 2 / (2.0 * sig2)).sum((-2, -1))
+
+    res = lddmm.optimize(lcfg, dataloss, q0, torch.zeros_like(q0), pf.x, qmask, pf.mask,
+                         nmax=RING_STEP["reg_nmax"], tol=RING_STEP["tol"],
+                         inner=RING_STEP["reg_inner"], max_linesearch_steps=RING_STEP["reg_ls"])
+    twin = float(cfe + res.trajl.sum() + res.datal.sum())
+    rel = abs(fes[0] - twin) / abs(twin)
+    rec = {"phase": "atlas_step_path", "frames": k, "n_points": n, "world_size": size,
+           "backend": backend_name, "grid_M": int(q0.shape[1]), **RING_STEP,
+           "FE_sequence": fes, "FE_sequence_carry_memory": fes_mem,
+           "alternation_FE": twin, "FE_rel_diff": rel, "tol_fe": TOL_ROUTE_FE,
+           "seconds_per_step": step_s, "launches": flat, "loss_grad_evals": evals,
+           "launches_per_loss_grad": per_eval, "max_memory_allocated_bytes": peak,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not all(flat[key] > 0 for key in ETA0_KERNELS if key != "kmin2"):
+        fail("atlas_step_path", f"a kernel of the path never launched: {flat}")
+    if not (all(map(math.isfinite, fes + fes_mem)) and monotone(fes) and monotone(fes_mem)):
+        fail("atlas_step_path", f"free energies not finite or not monotone: {fes}, {fes_mem}")
+    if rel > TOL_ROUTE_FE:
+        fail("atlas_step_path", f"the first step's FE {fes[0]} against the alternation's {twin}")
+    if x1.shape != pf.x.shape or not bool(torch.isfinite(x1).all()):
+        fail("atlas_step_path", "warped points have the wrong shape or are not finite")
+    return rec
+
+
+def phase_blockwise_path(counters, backend):
+    """The blockwise route (ops/blockwise.py), forced: (a) the grid route
+    agreement's workload (3 x 4,000 points, run(2) and a stepwise Reg_opt)
+    on it and on the kernel route, FE within TOL_ROUTE_FE, no kernel
+    launched on it; (b) one loss+grad of run_large's dense problem at
+    65,536 points on it against the kernel route at the same non-zero
+    momenta (one kernel-route Reg_opt): the loss within TOL_FWD, the
+    gradient within TOL_BWD of its largest entry, its peak memory under
+    BLOCKWISE_PEAK_BYTES; (c) the grid loss+grad at (a)'s kernel-route state
+    with backward_precision "accurate" (the blockwise VJP) against "fast"
+    (the backward kernels): the gradient within TOL_BWD of its largest
+    entry, the backwards' seconds."""
+    import torch
+    from difficp_torch.models.psr import DiffPSR
+
+    t0 = time.perf_counter()
+    fes, secs, launches, psrs = {}, {}, {}, {}
+    for mode in ("kernel", "blockwise"):
+        backend.set_backend(mode)
+        try:
+            reset(*counters.values())
+            t1 = time.perf_counter()
+            psr = grid_psr(3, 4000)
+            psr.run(2, **GRID_RUN)
+            psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t1
+        finally:
+            backend.set_backend(None)
+        fes[mode], launches[mode], psrs[mode] = psr.FE, flat_counts(counters), psr
+    rel = abs(fes["blockwise"] - fes["kernel"]) / abs(fes["kernel"])
+    emit({"phase": "blockwise_route_agreement", "frames": 3, "n_points": 4000,
+          "grid_M": int(psrs["kernel"].q0.shape[1]), "FE_kernel": fes["kernel"],
+          "FE_blockwise": fes["blockwise"], "rel_diff": rel, "tol": TOL_ROUTE_FE,
+          "seconds": secs, "fe_increase_events": {m: p.fe_increase_events
+                                                  for m, p in psrs.items()},
+          "blockwise_launches": launches["blockwise"]})
+    if rel > TOL_ROUTE_FE or any(p.fe_increase_events for p in psrs.values()):
+        fail("blockwise_route_agreement", "blockwise and kernel routes disagree")
+    if any(launches["blockwise"].values()) or not launches["kernel"]["rhs_ext_bwd_dx"]:
+        fail("blockwise_route_agreement", f"routes not taken: {launches}")
+
+    # (c) the accurate backward at the kernel run's state
+    psr = psrs["kernel"]
+    grads, bwd = {}, {}
+    backend.set_backend("kernel")
+    try:
+        for prec in ("fast", "accurate", "fast", "accurate"):
+            backend.set_bwd_precision(prec)
+            reset(*counters.values())
+            _, grads[prec], _, bwd[prec] = timed_loss_grad(psr)
+            launches[prec] = flat_counts(counters)
+    finally:
+        backend.set_bwd_precision("fast")
+        backend.set_backend(None)
+    backend.set_backend("kernel")
+    try:
+        with float64_table_kernels():
+            _, grad64, _, _ = timed_loss_grad(psr)
+    finally:
+        backend.set_backend(None)
+    rel_acc = rel_err(grads["accurate"], grads["fast"].double())
+    emit({"phase": "blockwise_accurate_backward", "frames": 3, "n_points": 4000,
+          "grad_rel_err": rel_acc, "tol": TOL_BWD,
+          "float64_route_rel_err": {p: rel_err(grads[p], grad64.double())
+                                    for p in ("fast", "accurate")},
+          "backward_seconds": bwd,
+          "launches": {p: launches[p] for p in ("fast", "accurate")}})
+    if rel_acc > TOL_BWD:
+        fail("blockwise_accurate_backward", "the accurate backward disagrees with the kernels")
+    if launches["accurate"]["rhs_self_bwd"] or not launches["fast"]["rhs_self_bwd"]:
+        fail("blockwise_accurate_backward", "backward routes not taken: "
+             f"{ {p: launches[p] for p in ('fast', 'accurate')} }")
+    del psrs, psr
+    torch.cuda.empty_cache()
+
+    # (b) full width: run_large's dense problem
+    x_a, gstate, gcfg, lcfg = twoset_problem(RING_N, "hybrid")
+    psr = DiffPSR(x_a, gstate, gcfg, lcfg, device="cuda")
+    psr.printstuff = False
+    psr.Reg_opt(tol=1e-3, nmax=1, inner=5, ls_steps=12)
+    timed_loss_grad(psr)
+    loss_k, grad_k, fwd_k, bwd_k = timed_loss_grad(psr)
+    backend.set_backend("blockwise")
+    try:
+        reset(*counters.values())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss_b, grad_b, fwd_b, bwd_b = timed_loss_grad(psr)
+        peak = torch.cuda.max_memory_allocated()
+        block_launches = flat_counts(counters)
+    finally:
+        backend.set_backend(None)
+    rel_loss = float(((loss_b.double() - loss_k.double()).abs() / loss_k.double().abs()).max())
+    rel_grad = rel_err(grad_b, grad_k.double())
+    emit({"phase": "blockwise_full_width", "n_points": RING_N, "sigma_lddmm": SIGMA,
+          "a0_abs_max": float(psr.a0.abs().max()), "loss_kernel": loss_k.tolist(),
+          "loss_blockwise": loss_b.tolist(), "loss_rel_diff": rel_loss, "tol_loss": TOL_FWD,
+          "grad_rel_err": rel_grad, "tol_grad": TOL_BWD,
+          "kernel_seconds": [fwd_k, bwd_k], "blockwise_seconds": [fwd_b, bwd_b],
+          "blockwise_max_memory_allocated_bytes": peak, "memory_before_bytes": base,
+          "peak_limit_bytes": BLOCKWISE_PEAK_BYTES, "blockwise_launches": block_launches,
+          "seconds": time.perf_counter() - t0})
+    if any(block_launches.values()):
+        fail("blockwise_full_width", f"a kernel launched on the blockwise route: {block_launches}")
+    if not (rel_loss <= TOL_FWD and rel_grad <= TOL_BWD):
+        fail("blockwise_full_width", "blockwise and kernel loss+grad disagree")
+    if peak >= BLOCKWISE_PEAK_BYTES:
+        fail("blockwise_full_width", f"peak memory {peak} bytes")
+    if not float(psr.a0.abs().max()) > 0.0:
+        fail("blockwise_full_width", "the momenta are zero")
+    del psr
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3694,6 +4117,21 @@ def main():
     std_launches_by_path = {"standard_atlas_path": std_atlas_launches,
                             "standard_two_set_path": std_two_set_launches}
 
+    # the host-offload atlas, the frame-parallel atlas step, the blockwise route
+    t0 = time.perf_counter()
+    offload = phase_offload_atlas_path(counters, rs.orders)
+    offload_agree = phase_offload_agreement(counters, offload["max_memory_allocated_bytes"])
+    emit({"phase": "offload_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    atlas_step = phase_atlas_step_path(counters)
+    emit({"phase": "atlas_step_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_blockwise_path(counters, backend)
+    emit({"phase": "blockwise_done", "seconds": time.perf_counter() - t0})
+    frame_paths = {"offload_atlas_path": offload["launches"],
+                   "offload_agreement": offload_agree["diffpsr_launches"],
+                   "atlas_step_path": atlas_step["launches"]}
+
     pr = "difficp_tpu/ops/pallas_reductions.py"
     sources = {"rhs_self": "difficp_torch/csrc/rhs_self.cu",
                "rhs_ext": "difficp_torch/csrc/rhs_ext.cu",
@@ -3715,7 +4153,7 @@ def main():
                             "multi_structure_path": multi_launches[name]}
         if name in auto_launches:
             launches_by_path["auto_lambda_path"] = auto_launches[name]
-        for path, counts in std_launches_by_path.items():
+        for path, counts in [*std_launches_by_path.items(), *frame_paths.items()]:
             if counts.get(name):
                 launches_by_path[path] = counts[name]
         if name in dense_launches:

@@ -42,13 +42,14 @@ def default_numerical_options(numerical_options: Optional[dict]) -> dict:
     set_default(opts, "gradcomponent_LDDMM", False)
     set_default(opts, "integration_scheme_LDDMM", "Euler")
     set_default(opts, "integration_nt_LDDMM", 10)
-    if opts.get("backward_precision") is not None:
-        raise ValueError(
-            "backward_precision has nothing to choose here: the port has one "
-            "backward, a direct pair sum with no cancellation floor")
+    # "fast" = the backward kernels; "accurate" = the VJP of the blockwise
+    # functions at the saved inputs (the self and ext RHS at any eta), for
+    # clouds the kernels' tests do not cover (ops/backend.py)
+    set_default(opts, "backward_precision", "fast")
     set_default(opts, "carry_memory_LDDMM", False)
     set_default(opts, "frame_chunk_LDDMM", None)
     apply_computversion(opts["computversion"])
+    backend_mod.set_bwd_precision(opts["backward_precision"])
     return opts
 
 

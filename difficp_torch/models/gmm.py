@@ -242,6 +242,10 @@ def _em_step_tiled(state, x, mask, cfg, skip_m, tile, group):
                      gamt=torch.cat(gamts))
 
 
+# points of one E-step tile above the dense pair limit
+EM_TILE = 8192
+
+
 def em_step(state: GMMState, x, mask: Optional[torch.Tensor], cfg: GMMConfig,
             skip_m: bool = False, tile: Optional[int] = None,
             group=None) -> EMStepOut:
@@ -257,7 +261,7 @@ def em_step(state: GMMState, x, mask: Optional[torch.Tensor], cfg: GMMConfig,
         return _em_step_tiled(state, x, mask, cfg, skip_m, tile, group)
     if _backend._use_dense(x.shape[0], state.mu.shape[0]):
         return _em_step_dense(state, x, mask, cfg, skip_m, group)
-    return _em_step_tiled(state, x, mask, cfg, skip_m, 8192, group)
+    return _em_step_tiled(state, x, mask, cfg, skip_m, EM_TILE, group)
 
 
 class EMOptOut(NamedTuple):
@@ -271,9 +275,10 @@ class EMOptOut(NamedTuple):
 
 def em_optimization(state: GMMState, x, mask: Optional[torch.Tensor],
                     cfg: GMMConfig, max_iterations: int = 100,
-                    tol: float = 1e-5) -> EMOptOut:
+                    tol: float = 1e-5, group=None) -> EMOptOut:
     """Iterated EM to free-energy tolerance (GMM.py:330-357): at least two
-    steps, then stop once |fe - last_fe| < tol |last_fe|."""
+    steps, then stop once |fe - last_fe| < tol |last_fe|.  ``group`` as for
+    ``em_step`` (the free energy it stops on is the group's)."""
     if mask is None:
         mask = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
     y = torch.zeros_like(x)
@@ -284,7 +289,7 @@ def em_optimization(state: GMMState, x, mask: Optional[torch.Tensor],
     i = 0
     while i < max_iterations and (
             i < 2 or bool((fe - last_fe).abs() >= tol * last_fe.abs())):
-        out = em_step(state, x, mask, cfg)
+        out = em_step(state, x, mask, cfg, group=group)
         state, y, cfe, last_fe, fe, gamt = (out.state, out.y, out.cfe, fe,
                                             out.fe, out.gamt)
         i += 1

@@ -41,17 +41,19 @@ from difficp_torch.utils.point_sets import decimate_sets, grid_support
 from difficp_torch.utils.spec import as_tensor, resolve_device
 
 
-def _gmm_opt(state, x, mask, cfg, max_iterations, tol, skip_m=False):
-    """EM on one structure over all frames' (flattened, masked) points."""
+def _gmm_opt(state, x, mask, cfg, max_iterations, tol, skip_m=False, group=None):
+    """EM on one structure over all frames' (flattened, masked) points; with
+    a process ``group``, this rank's frames, the sums reduced over it."""
     k, n, d = x.shape
     x_flat = x.reshape(k * n, d)
     m_flat = mask.reshape(k * n)
     if skip_m:
-        out = gmm_mod.em_step(state, x_flat, m_flat, cfg, skip_m=True)
+        out = gmm_mod.em_step(state, x_flat, m_flat, cfg, skip_m=True, group=group)
         st, y, cfe, n_iters, gamt = out.state, out.y, out.cfe, 0, out.gamt
     else:
         opt = gmm_mod.em_optimization(state, x_flat, m_flat, cfg,
-                                      max_iterations=max_iterations, tol=tol)
+                                      max_iterations=max_iterations, tol=tol,
+                                      group=group)
         st, y, cfe, n_iters, gamt = opt.state, opt.y, opt.cfe, opt.n_iters, opt.gamt
     return st, y.reshape(k, n, d), cfe, n_iters, gamt.reshape(k, n)
 
@@ -75,12 +77,14 @@ def _frame_quad_dataloss(y, sig2, xm, w):
 
 def _reg_opt_lddmm(lcfg, q0, a0, x0, y, sig2, qmask, xmask, ptw, nmax, tol,
                    use_ext, inner, ls_steps, alpha0, mem0, vg0, alpha_qn0, stall0,
-                   r_cover_warn=2.0):
+                   r_cover_warn=2.0, coverage_check=True):
     """All-frames LDDMM registration step (lockstep L-BFGS over the momenta;
-    PSR.py:521-569).  With external points (``use_ext``) one more shoot saves
-    the trajectory, and every data point of every frame at every time step
-    is checked for coverage by the support in one batched call
-    (PSR.py:556-566).  Returns new a0, warped points, per-frame (regloss,
+    PSR.py:521-569).  With external points (``use_ext``) and
+    ``coverage_check`` one more shoot saves the trajectory, and every data
+    point of every frame at every time step is checked for coverage by the
+    support in one batched call (PSR.py:556-566); without ``coverage_check``
+    the warped points are those of the optimizer's own final shoot and the
+    counts are zero.  Returns new a0, warped points, per-frame (regloss,
     datal, nsteps, change), per-frame uncovered counts (K, nt + 1), alpha,
     memory, the threaded (grad, final, trajl, datal), n_evals, alpha_qn and
     stall."""
@@ -90,7 +94,7 @@ def _reg_opt_lddmm(lcfg, q0, a0, x0, y, sig2, qmask, xmask, ptw, nmax, tol,
         xmask if use_ext else None, nmax=nmax, tol=tol,
         inner=inner, max_linesearch_steps=ls_steps, alpha0=alpha0,
         alpha_qn0=alpha_qn0, memory0=mem0, warm_vg=vg0, stall0=stall0)
-    if use_ext:
+    if use_ext and coverage_check:
         with torch.no_grad():
             final, traj = lddmm_mod.shoot(lcfg, q0, res.p0, x0, qmask, xmask,
                                           save_traj=True)
@@ -99,13 +103,25 @@ def _reg_opt_lddmm(lcfg, q0, a0, x0, y, sig2, qmask, xmask, ptw, nmax, tol,
         x1 = final.x
         uncovered = uncov.sum(-1).to(torch.int32).T.contiguous()
     else:
-        x1 = res.final.q
+        x1 = res.final.x if use_ext else res.final.q
         uncovered = torch.zeros((q0.shape[0], lcfg.nt + 1), dtype=torch.int32,
                                 device=q0.device)
     return (res.p0, x1, res.trajl, res.datal, res.n_steps, res.change,
             uncovered, res.alpha, res.memory,
             (res.grad, res.final, res.trajl, res.datal), res.n_evals,
             res.alpha_qn, res.stalled)
+
+
+def _v2p_all(lcfg, q0, v_target, qmask, rcond, version="pinv"):
+    """``lddmm.v2p`` of every frame at once (frames on the leading axis)."""
+    with torch.no_grad():
+        return lddmm_mod.v2p(lcfg, q0, v_target, rcond=rcond, version=version, qmask=qmask)
+
+
+def _v_all(lcfg, x, q, p, qmask):
+    """``lddmm.v`` of every frame at once: the field of (q, p) at x."""
+    with torch.no_grad():
+        return lddmm_mod.v(lcfg, x, q, p, qmask)
 
 
 def _reg_opt_affine(acfg, x0, y, z, w, xmask):
@@ -116,11 +132,17 @@ def _reg_opt_affine(acfg, x0, y, z, w, xmask):
 class MultiPSR:
     """Common machinery of the registration variants (PSR.py:42-345): padded
     point sets, per-structure GMMs, free-energy bookkeeping with the
-    monotonicity warning."""
+    monotonicity warning.
+
+    ``group``: a ``torch.distributed`` process group over which the frames
+    are sharded (``parallel.atlas.shard_psr``), None for all frames here.
+    With a group, the EM sums and the free energy's per-frame sums are
+    reduced over it; the registration of each frame is this rank's alone."""
 
     def __init__(self, x, gmm_states, gmm_cfgs, device=None):
         self.device = resolve_device(device)
         self.printstuff = True
+        self.group = None
 
         self.structs: list[PaddedFrames] = pad_structures(x, self.device)
         self.S = len(self.structs)
@@ -215,7 +237,7 @@ class MultiPSR:
             pf = self.structs[s]
             st, y_s, cfe, _, gamt_s = _gmm_opt(
                 self.gmm[s], self.struct_view(self.x1, s), pf.mask,
-                self.gmm_cfg[s], 1, 0.0, skip_m=True)
+                self.gmm_cfg[s], 1, 0.0, skip_m=True, group=self.group)
             self._apply_gmm_outputs(s, st, y_s, cfe, gamt_s)
         self.update_FE()
 
@@ -225,7 +247,7 @@ class MultiPSR:
             pf = self.structs[s]
             st, y_s, cfe, iters, gamt_s = _gmm_opt(
                 self.gmm[s], self.struct_view(self.x1, s), pf.mask,
-                self.gmm_cfg[s], max_iterations, tol)
+                self.gmm_cfg[s], max_iterations, tol, group=self.group)
             self._apply_gmm_outputs(s, st, y_s, cfe, gamt_s)
             if self.printstuff:
                 msg = f"GMM optim (structure {s}) : {int(iters)} EM steps"
@@ -275,14 +297,24 @@ class MultiPSR:
 
     def update_FE(self, message=None):
         """F bookkeeping with monotonicity check (PSR.py:226-236); the one
-        host sync per partial step."""
-        fe = float(sum(self.Cfe) + self.regloss.sum() + self.quadloss.sum())
+        host sync per partial step.  With a group the per-frame sums are
+        reduced over it, once (the Cfe are already the group's)."""
+        fe = float(self._fe_terms(sum(self.Cfe), self.regloss.sum(), self.quadloss.sum()))
         if self.printstuff and message is not None:
             print(message.ljust(70) + f"Total free energy = {fe:.8}")
         if self.FE is not None and fe > self.FE + 1e-4 * abs(self.FE) + 1e-6:
             self.fe_increase_events += 1
             print("WARNING: measured increase in free energy ! Should not happen.")
         self.FE = fe
+
+    def _fe_terms(self, cfe, regl, quad):
+        """cfe + regl + quad, the two frame sums (regl, quad) summed over the
+        group's ranks, in one reduction, when there is one."""
+        if self.group is not None:
+            from difficp_torch.parallel.launch import all_reduce
+
+            regl, quad = all_reduce(torch.stack([regl, quad]), self.group)
+        return cfe + regl + quad
 
     def _gmm_pass(self, max_em, em_tol):
         """EM on every structure from the current warped points: new GMM
@@ -293,7 +325,7 @@ class MultiPSR:
             ms = self.structs[s].mask
             opt = gmm_mod.em_optimization(
                 self.gmm[s], xs.reshape(-1, self.D), ms.reshape(-1),
-                self.gmm_cfg[s], max_iterations=max_em, tol=em_tol)
+                self.gmm_cfg[s], max_iterations=max_em, tol=em_tol, group=self.group)
             self.gmm[s] = opt.state
             ys.append(opt.y.reshape(xs.shape))
             ptws.append(opt.gamt.reshape(ms.shape))
@@ -562,7 +594,7 @@ class DiffPSR(MultiPSR):
                 mem = res.memory
             quad = ((self.xmask * ptw)[..., None] * (self.x1 - y) ** 2
                     / (2.0 * sig2[..., None])).sum()
-            fes.append(cfes.sum() + res.trajl.sum() + quad)
+            fes.append(self._fe_terms(cfes.sum(), res.trajl.sum(), quad))
         self._reg_alpha = alpha
         self._reg_alpha_qn = aqn
         if carry_memory:
@@ -631,7 +663,7 @@ class AffinePSR(MultiPSR):
             fit = self._fit(y, ptw)
             quad = ((self.xmask * ptw)[..., None] * (fit.tx - y) ** 2
                     / (2.0 * sig2[..., None])).sum()
-            fes.append(cfes.sum() + fit.regl.sum() + quad)
+            fes.append(self._fe_terms(cfes.sum(), fit.regl.sum(), quad))
         return self._close_run(fes, n_iters)
 
     def Registration(self, k=0) -> AffineRegistration:

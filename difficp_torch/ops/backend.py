@@ -1,7 +1,7 @@
 """Route selection for the pair reductions (counterpart of
 ``difficp_tpu/ops/backend.py``).
 
-Two routes with one contract:
+Three routes with one contract:
 
 - ``dense``  -- materialize the (M, N) pair matrices (``ops/reductions.py``);
                 used at or under ``DENSE_PAIR_LIMIT`` pairs per frame, with
@@ -15,17 +15,27 @@ Two routes with one contract:
                 gradcomponent model (eta != 0), the generated kernel-sums
                 (``ops/pair_poly.py``); used above the limit, at any eta.  On a CPU tensor they take the
                 kernels' plain PyTorch versions, which stand in for the JAX
-                package's ``blockwise`` route until that module is ported.
+                package's ``blockwise`` route in the auto route, which keeps
+                the same dispatch on the CPU as on the card.
+- ``blockwise`` -- the tiled plain PyTorch functions of ``ops/blockwise.py``,
+                O(M + N) memory with checkpointed tile bodies; taken only
+                when forced (``set_backend("blockwise")``, the API's
+                ``"blockwise"`` / ``"keops"``), at every size, as the JAX
+                package takes it when forced.  On that route ``row_order``
+                and ``data_order`` are None.
 
 ``set_backend("kernel")`` forces the kernel route at any size (the API's
-``"pallas"`` maps to it).  Routes that are not ported yet raise
-``NotImplementedError`` and name the slice that brings them.
+``"pallas"`` maps to it).  ``set_bwd_precision("accurate")`` makes the
+kernel route's self and ext RHS backward the VJP of the blockwise functions
+at the saved inputs (``ops/rhs_self.py``, ``ops/rhs_ext.py``); ``"fast"``,
+the default, is the backward kernels.
 """
 
 from __future__ import annotations
 
 import os
 
+from difficp_torch.ops import blockwise as _block
 from difficp_torch.ops import kmin2 as _kmin2
 from difficp_torch.ops import ksum as _ksum
 from difficp_torch.ops import reductions as _dense
@@ -35,27 +45,38 @@ from difficp_torch.ops import rhs_self as _kernel
 # 4M pairs * ~6 (M,N)-temps * 4B ~= 100MB peak; beyond, stream.
 DENSE_PAIR_LIMIT = int(os.environ.get("DIFFICP_DENSE_PAIR_LIMIT", 4_000_000))
 
-_FORCE = {"mode": None}  # None = auto; "dense" | "kernel"
+_FORCE = {"mode": None}  # None = auto; "dense" | "kernel" | "blockwise"
 
 
 def set_backend(mode):
     """Force a route globally (None = size-based auto), the reference's
     set_computversion (kernel.py:91-110)."""
-    if mode == "blockwise":
-        raise NotImplementedError(
-            "the blockwise route is not ported yet; the kernel route's plain "
-            "version stands in for it on the CPU")
-    if mode not in (None, "dense", "kernel"):
+    if mode not in (None, "dense", "kernel", "blockwise"):
         raise ValueError(f"unknown backend {mode!r}")
     _FORCE["mode"] = mode
+
+
+def set_bwd_precision(mode):
+    """The kernel route's RHS backward: "fast" (the backward kernels) or
+    "accurate" (the VJP of the blockwise functions at the saved inputs, for
+    the self and ext RHS at any eta; their forwards stay the kernels, and
+    the eta != 0 self and ext forwards stay off the generated route).  Read
+    at each call, as ``set_backend`` is."""
+    if mode not in ("fast", "accurate"):
+        raise ValueError(f"unknown backward precision {mode!r}")
+    _kernel._BWD_PRECISION["mode"] = mode
 
 
 def _use_dense(m, n):
     if _FORCE["mode"] == "dense":
         return True
-    if _FORCE["mode"] == "kernel":
+    if _FORCE["mode"] in ("kernel", "blockwise"):
         return False
     return m * n <= DENSE_PAIR_LIMIT
+
+
+def _use_block():
+    return _FORCE["mode"] == "blockwise"
 
 
 def row_order(q, sigma, mask_q=None, eta=0.0, x=None):
@@ -65,7 +86,7 @@ def row_order(q, sigma, mask_q=None, eta=0.0, x=None):
     once for every RHS, Hamiltonian and kernel-sum at the same q0 and pass it
     on (``order=``)."""
     m = q.shape[-2]
-    if eta != 0.0 or _use_dense(m, m if x is None else m + x.shape[-2]):
+    if eta != 0.0 or _use_block() or _use_dense(m, m if x is None else m + x.shape[-2]):
         return None
     return _kernel.row_order(q, _kernel._ones_mask(q) if mask_q is None else mask_q,
                              float(sigma))
@@ -77,36 +98,42 @@ def data_order(x, q, sigma, mask_x=None, eta=0.0):
     RHS takes none.  Callers compute it once for every RHS at the same x0
     and pass it on (``xorder=``)."""
     m = q.shape[-2]
-    if eta != 0.0 or _use_dense(m, m + x.shape[-2]):
+    if eta != 0.0 or _use_block() or _use_dense(m, m + x.shape[-2]):
         return None
     return _ext.data_order(x, _kernel._ones_mask(x) if mask_x is None else mask_x,
                            float(sigma))
 
 
 def lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q=None, order=None):
-    """(vq, -Gq, dcost) of the self RHS, dense or kernel route."""
+    """(vq, -Gq, dcost) of the self RHS."""
     m = q.shape[-2]
     if _use_dense(m, m):
         return _dense.lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q)
+    if _use_block():
+        return _block.lddmm_rhs_self(q, p, sigma, eta, withlogdet, mask_q)
     return _kernel.lddmm_rhs_self(q, p, sigma, withlogdet, mask_q, eta, order)
 
 
 def lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q=None, mask_x=None, order=None,
                   xorder=None):
-    """(vq, -Gq, dcost, vx) of the RHS with external points x, dense or kernel
-    route, on m (m + n_x) pairs per frame (JAX backend.py:122-130)."""
+    """(vq, -Gq, dcost, vx) of the RHS with external points x, on m (m + n_x)
+    pairs per frame (JAX backend.py:122-130)."""
     m = q.shape[-2]
     if _use_dense(m, m + x.shape[-2]):
         return _dense.lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q, mask_x)
+    if _use_block():
+        return _block.lddmm_rhs_ext(q, p, x, sigma, eta, withlogdet, mask_q, mask_x)
     return _ext.lddmm_rhs_ext(q, p, x, sigma, withlogdet, mask_q, mask_x, eta, order,
                               xorder)
 
 
 def hamiltonian(q, p, sigma, eta, mask_q=None, order=None):
-    """H(q, p) (LDDMM.py:142-159), dense or kernel route."""
+    """H(q, p) (LDDMM.py:142-159)."""
     m = q.shape[-2]
     if _use_dense(m, m):
         return _dense.hamiltonian(q, p, sigma, eta, mask_q)
+    if _use_block():
+        return _block.hamiltonian(q, p, sigma, eta, mask_q)
     return _kernel.hamiltonian(q, p, sigma, mask_q, eta, order)
 
 
@@ -115,6 +142,8 @@ def v_field(x, q, p, sigma, eta, mask_q=None):
     with logdet off (the JAX package's make_v_field)."""
     if _use_dense(x.shape[-2], q.shape[-2]):
         return _dense.v_field(x, q, p, sigma, eta, mask_q)
+    if _use_block():
+        return _block.v_field(x, q, p, sigma, eta, mask_q)
     return _ext.v_field(x, q, p, sigma, mask_q, eta)
 
 
@@ -124,6 +153,8 @@ def grad_kred(x, y, sigma, mask_y=None):
     grad_kred_mm)."""
     if _use_dense(x.shape[-2], y.shape[-2]):
         return _dense.grad_kred(x, y, sigma, mask_y)
+    if _use_block():
+        return _block.grad_kred(x, y, sigma, mask_y)
     return _ksum.grad_kred(x, y, sigma, mask_y)
 
 
@@ -137,6 +168,8 @@ def kred(x, y, b, sigma, mask_y=None, order=None):
     JAX package's kred_mm)."""
     if _use_dense(x.shape[-2], y.shape[-2]):
         return _dense.kred(x, y, b, sigma, mask_y)
+    if _use_block():
+        return _block.kred(x, y, b, sigma, mask_y)
     if x is not y:
         return _ksum.kred(x, y, b, sigma, mask_y)
     m = _kernel._ones_mask(x) if mask_y is None else mask_y.contiguous()
@@ -151,6 +184,8 @@ def kred_scal(x, y, d, sigma, mask_y=None):
     JAX package's kred_scal_mm): the standard algorithm's data_distance."""
     if _use_dense(x.shape[-2], y.shape[-2]):
         return _dense.kred_scal(x, y, d, sigma, mask_y)
+    if _use_block():
+        return _block.kred_scal(x, y, d, sigma, mask_y)
     return _ksum.kred_scal(x, y, d, sigma, mask_y)
 
 
@@ -161,6 +196,8 @@ def mdivsum(x, q, p, sigma, eta, mask_q=None, mask_x=None):
     package's make_mdivsum)."""
     if _use_dense(q.shape[-2], x.shape[-2]):
         return _dense.mdivsum(x, q, p, sigma, eta, mask_q, mask_x)
+    if _use_block():
+        return _block.mdivsum(x, q, p, sigma, eta, mask_q, mask_x)
     return _ksum.mdivsum(x, q, p, sigma, eta, mask_q, mask_x)
 
 
@@ -169,6 +206,8 @@ def min_sqdist(x, y, mask_y=None):
     limit."""
     if _use_dense(x.shape[-2], y.shape[-2]):
         return _dense.min_sqdist(x, y, mask_y)
+    if _use_block():
+        return _block.min_sqdist(x, y, mask_y)
     if mask_y is not None:
         mask_y = mask_y.expand(y.shape[:-1]).contiguous()
     m1, _ = _kmin2.kmin2(x.contiguous(), y.contiguous(), mask_y)
@@ -180,6 +219,8 @@ def second_min_sqdist(x, mask=None):
     with self-exclusion above the limit (its first minimum)."""
     if _use_dense(x.shape[-2], x.shape[-2]):
         return _dense.second_min_sqdist(x, mask)
+    if _use_block():
+        return _block.second_min_sqdist(x, mask)
     if mask is not None:
         mask = mask.expand(x.shape[:-1]).contiguous()
     m1, _ = _kmin2.kmin2(x.contiguous(), x.contiguous(), mask, exclude_self=True)

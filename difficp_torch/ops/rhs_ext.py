@@ -449,7 +449,9 @@ class RHSExt(torch.autograd.Function):
     the dq/dp kernel with the support's rows in ``order``, the dx kernel with
     the data rows in ``xorder`` (``rhs_self.row_order`` of (q, mq) and
     ``data_order`` of (x, mx), each computed per call when None).  At eta != 0 the routes of
-    the module docstring, on coordinates shifted by one centroid."""
+    the module docstring, on coordinates shifted by one centroid.  Under the
+    "accurate" backward (``rhs_self._BWD_PRECISION``) the backward is the VJP
+    of ``blockwise.lddmm_rhs_ext`` at any eta."""
 
     @staticmethod
     def forward(ctx, q, p, x, mq, mx, sigma, withlogdet, eta=0.0, order=None, xorder=None):
@@ -472,6 +474,14 @@ class RHSExt(torch.autograd.Function):
         gx = torch.zeros_like(x) if gx is None else gx.contiguous()
         zero_c = torch.zeros(q.shape[:-2], dtype=q.dtype, device=q.device)
         gc = zero_c if gc is None else gc.contiguous()
+        if rhs_self.accurate_bwd():
+            from difficp_torch.ops import blockwise
+
+            def fn(q_, p_, x_):
+                return blockwise.lddmm_rhs_ext(q_, p_, x_, sigma, ctx.eta, wl, mq, mx)
+
+            dq, dp, dx = blockwise.vjp(fn, (q, p, x), (gv, gw, gc, gx), ctx.needs_input_grad[:3])
+            return dq, dp, dx, None, None, None, None, None, None, None
         if ctx.eta != 0.0:
             from difficp_torch.ops import ksum, pair_poly
 
@@ -500,7 +510,7 @@ def _eta_forward(q, p, x, mq, mx, sigma, withlogdet, eta):
     c = ksum.mm_center(q, mq)
     qc = q - c
     v, w, _ = rhs_self.eta_forward(q, p, mq, sigma, False, eta)
-    if x.shape[-2] >= rhs_self._POLY_FWD_MIN_M:
+    if x.shape[-2] >= rhs_self._POLY_FWD_MIN_M and not rhs_self.accurate_bwd():
         vx, dc = pair_poly.rhs_ext_fwd_poly(qc, p, x - c, mq, mx, sigma, eta,
                                             withlogdet)
     else:

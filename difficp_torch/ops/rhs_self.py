@@ -81,6 +81,18 @@ _DEFAULT_SMS = 132
 # pallas_reductions._POLY_FWD_MIN_M)
 _POLY_FWD_MIN_M = 32768
 
+# the RHS backward of RHSSelf and rhs_ext.RHSExt (backend.set_bwd_precision):
+# "fast", the backward kernels, or "accurate", the VJP of the blockwise
+# functions (ops/blockwise.py) at the saved inputs; under "accurate" the eta
+# != 0 forwards also stay off the generated route (the JAX package's
+# pallas_reductions._BWD_PRECISION)
+_BWD_PRECISION = {"mode": "fast"}
+
+
+def accurate_bwd() -> bool:
+    return _BWD_PRECISION["mode"] == "accurate"
+
+
 # the any-eta forward (csrc/direct.cuh): warps a block (kDirectWarps), rows a
 # block of it (2 a thread: SelfEta), and the blocks an SM holds at least
 # (kDirectMinBlocks), one wave of which the split of the column axis fills
@@ -576,9 +588,9 @@ def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet, order=None):
 
 def eta_forward(q, p, m, sigma, withlogdet, eta):
     """(v, w, dcost per frame) at eta != 0, routed as ``make_rhs_self``: the
-    any-eta kernel below ``_POLY_FWD_MIN_M`` points, else the generated
-    forward on centered coordinates."""
-    if q.shape[-2] < _POLY_FWD_MIN_M:
+    any-eta kernel below ``_POLY_FWD_MIN_M`` points or under the "accurate"
+    backward, else the generated forward on centered coordinates."""
+    if q.shape[-2] < _POLY_FWD_MIN_M or accurate_bwd():
         v, w, dc = rhs_self_fwd(q, p, m, sigma, withlogdet, eta)
         return v, w, dc.sum(-1)
     from difficp_torch.ops import ksum, pair_poly
@@ -593,7 +605,9 @@ class RHSSelf(torch.autograd.Function):
     in the backward kernel from the saved q, p and m, both kernels with the
     rows in ``order`` (``row_order``; computed by each kernel wrapper when
     None).  At eta != 0 the forward is ``eta_forward`` and the backward the
-    generated kernel-sums on centered coordinates."""
+    generated kernel-sums on centered coordinates.  Under the "accurate"
+    backward (``_BWD_PRECISION``) the backward is the VJP of
+    ``blockwise.lddmm_rhs_self`` at any eta."""
 
     @staticmethod
     def forward(ctx, q, p, m, sigma, withlogdet, eta=0.0, order=None):
@@ -612,7 +626,14 @@ class RHSSelf(torch.autograd.Function):
         gw = torch.zeros_like(q) if gw is None else gw.contiguous()
         gc = (torch.zeros(q.shape[:-2], dtype=q.dtype, device=q.device)
               if gc is None or not ctx.withlogdet else gc.contiguous())
-        if ctx.eta != 0.0:
+        if accurate_bwd():
+            from difficp_torch.ops import blockwise
+
+            def fn(q_, p_):
+                return blockwise.lddmm_rhs_self(q_, p_, ctx.sigma, ctx.eta, ctx.withlogdet, m)
+
+            dq, dp = blockwise.vjp(fn, (q, p), (gv, gw, gc), ctx.needs_input_grad[:2])
+        elif ctx.eta != 0.0:
             from difficp_torch.ops import ksum, pair_poly
 
             qc = q - ksum.mm_center(q, m)

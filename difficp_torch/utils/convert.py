@@ -18,6 +18,12 @@ Template_opt) and ``AffinePSRStd`` (template, weights, M, t and the lanes).
 ``twoset_out_from_numpy`` takes the state between two point-sharded two-set
 steps (the JAX package's ``TwosetStepOut``, gathered) to one rank's
 ``parallel.twoset.TwosetStepOut``.
+
+``load_offload_state`` / ``offload_state_to_numpy`` carry a
+``HostOffloadAtlas`` state (its host arrays, GMMs, step sizes ``_alpha``, the
+energy terms and FE; the attribute names of both packages), and
+``atlas_out_from_numpy`` / ``atlas_out_to_numpy`` an ``AtlasStepOut`` of the
+frame-parallel atlas step (a rank's block of frames with ``frames=``).
 """
 
 from __future__ import annotations
@@ -224,3 +230,87 @@ def std_state_to_numpy(psr) -> dict:
     out["dataloss"] = np.asarray(psr.dataloss, np.float64)
     out["E"] = psr.E
     return out
+
+
+_OFFLOAD_ARRAYS = ("x0", "x1", "y", "ptw", "mask", "q0", "qmask", "a0", "_alpha")
+_OFFLOAD_VALUES = ("cfe", "quadloss", "regloss", "FE", "fe_increase_events", "support_scheme")
+
+
+def load_offload_state(atlas, arrays: dict):
+    """Load a state into a port ``HostOffloadAtlas`` of the same frames and
+    chunking: ``gmm`` (list over structures of dicts of the GMMState
+    fields), the host arrays of ``_OFFLOAD_ARRAYS`` (padded frames) and the
+    values of ``_OFFLOAD_VALUES``, each optional."""
+    if arrays.get("gmm") is not None:
+        atlas.gmm = [gmm_state_from_numpy(g["mu"], g["w"], g["sigma"], g["eta0"], g["vol0"],
+                                          atlas.device) for g in arrays["gmm"]]
+    for name in _OFFLOAD_ARRAYS:
+        if arrays.get(name) is not None:
+            setattr(atlas, name, atlas._host(as_tensor(arrays[name], "cpu").clone()))
+    for name in _OFFLOAD_VALUES:
+        if name in arrays:
+            val = arrays[name]
+            if name == "cfe":
+                val = [float(c) for c in val]
+            elif name in ("quadloss", "regloss") or (name == "FE" and val is not None):
+                val = float(val)
+            elif name == "fe_increase_events":
+                val = int(val)
+            setattr(atlas, name, val)
+    return atlas
+
+
+def offload_state_to_numpy(atlas) -> dict:
+    """The state ``load_offload_state`` reads, as numpy (the same keys as
+    the JAX package's ``HostOffloadAtlas`` attributes)."""
+    out = {"gmm": [{f: getattr(g, f).detach().cpu().numpy() for f in GMMState._fields}
+                   for g in atlas.gmm]}
+    for name in _OFFLOAD_ARRAYS:
+        out[name] = getattr(atlas, name).numpy().copy()
+    for name in _OFFLOAD_VALUES:
+        out[name] = getattr(atlas, name)
+    out["cfe"] = list(atlas.cfe)
+    return out
+
+
+_STEP_ARRAYS = ("a0", "x1", "y", "regloss", "quadloss", "alpha")
+
+
+def atlas_out_from_numpy(out: dict, device, frames=None):
+    """``parallel.atlas.AtlasStepOut`` from its fields as numpy (``gmm`` a
+    dict of the GMMState fields, ``memory`` a dict of the batched
+    LBFGSMemory fields or None): the frames of ``frames`` (a slice, None =
+    all) of the per-frame arrays and of the memory."""
+    from difficp_torch.parallel.atlas import AtlasStepOut
+
+    sl = slice(None) if frames is None else frames
+
+    def rows(name, dtype=None):
+        val = out.get(name)
+        return None if val is None else as_tensor(np.asarray(val)[sl], device,
+                                                  dtype).contiguous()
+
+    mem = out.get("memory")
+    if mem is not None:
+        mem = LBFGSMemory(S=as_tensor(mem["S"][sl], device), Y=as_tensor(mem["Y"][sl], device),
+                          rho=as_tensor(mem["rho"][sl], device),
+                          pos=as_tensor(mem["pos"][sl], device, torch.long),
+                          count=as_tensor(mem["count"][sl], device, torch.long))
+    g = out["gmm"]
+    return AtlasStepOut(
+        gmm=gmm_state_from_numpy(g["mu"], g["w"], g["sigma"], g["eta0"], g["vol0"], device),
+        a0=rows("a0"), x1=rows("x1"), y=rows("y"),
+        cfe=None if out.get("cfe") is None else as_tensor(out["cfe"], device),
+        fe=None if out.get("fe") is None else as_tensor(out["fe"], device),
+        regloss=rows("regloss"), quadloss=rows("quadloss"), alpha=rows("alpha"), memory=mem)
+
+
+def atlas_out_to_numpy(out) -> dict:
+    """The fields ``atlas_out_from_numpy`` reads, as numpy."""
+    host = lambda t: None if t is None else t.detach().cpu().numpy()  # noqa: E731
+    res = {"gmm": {f: host(getattr(out.gmm, f)) for f in GMMState._fields},
+           "cfe": host(out.cfe), "fe": host(out.fe),
+           **{name: host(getattr(out, name)) for name in _STEP_ARRAYS}}
+    res["memory"] = None if out.memory is None else {
+        f: host(getattr(out.memory, f)) for f in LBFGSMemory._fields}
+    return res

@@ -308,7 +308,8 @@ def lbfgs_optimize(
 
     ``alpha0``: warm-start step sizes for the first line search (None, a
     non-positive or non-finite entry falls back to the internal
-    min(1, 1/||g0||) seed).  ``memory0``: curvature memory of a previous call.
+    min(1, 1/||g0||) seed).  ``memory0``: curvature memory of a previous call,
+    whose size (pairs a lane) overrides ``memory_size``.
     ``value0``/``grad0`` (both or neither, with ``aux0`` under ``has_aux``):
     loss and gradient AT ``p0`` on the IDENTICAL objective; skips the entry
     evaluation.  ``stall0``: lanes frozen by a previous call on the same
@@ -324,7 +325,8 @@ def lbfgs_optimize(
     kk = shape[0]
     x0 = p0.detach().reshape(kk, -1)
     n = x0.shape[1]
-    m = int(memory_size)
+    # a carried memory keeps its own size
+    m = int(memory_size) if memory0 is None else int(memory0.S.shape[1])
     dev = x0.device
     if group is None:
         dot, inf_norm, n_all = _dot, (lambda t: t.abs().amax(-1)), n

@@ -1086,3 +1086,67 @@ def test_kred_matches_plain(cuda, case):
     _close(got[0], ref[0], TOL_FWD)
     for g, r in zip(got[1:], ref[1:]):
         _close(g, r, TOL_BWD)
+
+
+@pytest.mark.parametrize("eta", [0.0, 0.4])
+def test_blockwise_on_card_matches_cpu(cuda, eta):
+    """The blockwise functions (ops/blockwise.py) on the card against the same
+    functions on the CPU, two frames of 1,500 x 700 points in tiles of 256:
+    the ext RHS's values within TOL_FWD and its gradients within TOL_BWD of
+    their largest entry; the minima bit for bit."""
+    from difficp_torch.ops import blockwise as BW
+
+    rng = np.random.default_rng(51)
+    q, p = rng.uniform(size=(2, 1500, 2)), 0.05 * rng.normal(size=(2, 1500, 2))
+    x = rng.uniform(size=(2, 700, 2))
+    mq = (rng.uniform(size=(2, 1500)) > 0.1).astype(np.float64)
+    cot = [rng.normal(size=s) for s in ((2, 1500, 2), (2, 1500, 2), (2,), (2, 700, 2))]
+
+    def run(device):
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+        qs, ps, xs = (t(a).requires_grad_(True) for a in (q, p, x))
+        outs = BW.lddmm_rhs_ext(qs, ps, xs, SIG, eta, True, t(mq), None, tile=256)
+        loss = sum((o * t(c)).sum() for o, c in zip(outs, cot))
+        grads = torch.autograd.grad(loss, (qs, ps, xs))
+        mins = [BW.min_sqdist(xs.detach(), qs.detach(), t(mq), tile=256),
+                BW.second_min_sqdist(qs.detach(), t(mq), tile=256)]
+        return [o.detach() for o in outs], list(grads), mins
+
+    got, ref = run(cuda), run("cpu")
+    for a, b in zip(got[0], ref[0]):
+        _close(a, b, TOL_FWD)
+    for a, b in zip(got[1], ref[1]):
+        _close(a, b, TOL_BWD)
+    for a, b in zip(got[2], ref[2]):
+        _close(a, b, 1e-6)
+
+
+def test_offload_two_chunks_on_card(cuda):
+    """HostOffloadAtlas on the card with its frames in pinned host memory, 4
+    spiral frames of 3,000 points in two chunks of 2 on a grid: the free
+    energy monotone and within 5e-3 of the same atlas on the CPU; the
+    kernels launched; bytes counted both ways."""
+    from difficp_torch.models import gmm
+    from difficp_torch.models.offload import HostOffloadAtlas
+    from difficp_torch.examples.run_large import spiral_cloud
+
+    frames = [spiral_cloud(3000, np.random.default_rng(k)) for k in range(4)]
+    mu0 = frames[0][np.random.default_rng(0).integers(0, 3000, 20)]
+    lcfg = lddmm.make_config(sigma=0.05, lambd=500.0, version="hybrid", nt=5, scheme="Euler")
+    fes = {}
+    for device in ("cpu", cuda):
+        if device != "cpu":
+            backend.set_backend("kernel")
+        try:
+            for c in RS.launches:
+                RS.launches[c] = 0
+            state, cfg = gmm.create(mu0, device=device)
+            atlas = HostOffloadAtlas(frames, state, cfg, lcfg, chunk_frames=2, device=device)
+            atlas.set_support_scheme("grid", rho=1.0)
+            fes[str(device)] = atlas.run(2, max_em=5, reg_nmax=2, reg_inner=5, reg_ls=8)
+            assert atlas.fe_increase_events == 0
+            assert atlas.bytes_h2d > 0 and atlas.bytes_d2h > 0
+        finally:
+            backend.set_backend(None)
+    assert atlas.x0.is_pinned() and RS.launches["rhs_self_bwd"] > 0
+    np.testing.assert_allclose(fes["cuda"], fes["cpu"], rtol=5e-3)

@@ -184,16 +184,27 @@ def test_icp_two_set_matches_jax():
 
 
 def test_backward_precision_raises():
-    """backward_precision has nothing to choose here: the port has one
-    backward (ROADMAP section 3)."""
+    """backward_precision takes "fast" (the backward kernels, the default) and
+    "accurate" (the blockwise VJP), which set the kernel route's backward,
+    and raises ValueError on any other value."""
+    from difficp_torch.api.common import default_numerical_options
+    from difficp_torch.ops import rhs_self as RS
+
     base = dict(GMM_parameters={"sigma": 0.1, "optimize_sigma": True}, printstuff=False,
                 device="cpu")
     diffeo = {"type": "diffeomorphic", "sigma_LDDMM": 0.2, "lambda_LDDMM": 500.0}
-    with pytest.raises(ValueError, match="backward_precision"):
-        t_icp_two_set(X, SPIRAL["x0"], registration_parameters=diffeo,
-                      numerical_options={"support_LDDMM": {"scheme": "dense"},
-                                         "backward_precision": "accurate"}, **base)
-    TB.set_backend(None)
+    try:
+        for mode in ("accurate", "fast"):
+            opts = default_numerical_options({"backward_precision": mode})
+            assert opts["backward_precision"] == mode == RS._BWD_PRECISION["mode"]
+        assert default_numerical_options(None)["backward_precision"] == "fast"
+        with pytest.raises(ValueError, match="backward precision"):
+            t_icp_two_set(X, SPIRAL["x0"], registration_parameters=diffeo,
+                          numerical_options={"support_LDDMM": {"scheme": "dense"},
+                                             "backward_precision": "exact"}, **base)
+    finally:
+        TB.set_backend(None)
+        TB.set_bwd_precision("fast")
 
 
 def test_entry_points_need_cuda_unless_cpu_asked():

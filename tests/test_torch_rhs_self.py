@@ -262,8 +262,8 @@ def test_dense_reductions_match_jax_any_eta():
 
 def test_backend_routes():
     """Dense at or under the pair limit, the kernel Functions when forced (at
-    eta = 0 and eta != 0), NotImplementedError for routes that are not
-    ported."""
+    eta = 0 and eta != 0), the blockwise functions when forced, and
+    ValueError for an unknown route."""
     q, p, mask, *_ = _inputs(64, 2, seed=2)
     qt, pt, mt = _t(q, p, mask)
     try:
@@ -279,8 +279,10 @@ def test_backend_routes():
         # kmin2 (its plain version here) takes the nearest-neighbour search
         np.testing.assert_allclose(TB.second_min_sqdist(qt, mt).numpy(),
                                    TR.second_min_sqdist(qt, mt).numpy(), rtol=1e-6)
-        with pytest.raises(NotImplementedError):
-            TB.set_backend("blockwise")
+        TB.set_backend("blockwise")
+        block = TB.lddmm_rhs_self(qt, pt, SIG, 0.0, True, mt)
+        for x, r in zip(block, dense):
+            _close(x, r, 1e-5)
         with pytest.raises(ValueError):
             TB.set_backend("pallas")
     finally:
