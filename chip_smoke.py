@@ -36,24 +36,38 @@ Phases, each printing JSON lines with its seconds:
   7. grid main path  bench.py's atlas workload widened to 10 frames of
                  65,536 points with grid support at sigma = 0.05: DiffPSR.run
                  and one stepwise Reg_opt (the coverage pass, kmin2);
-  8. decim main path  the same workload with decim support (each frame's own
-                 greedy cover at rho = 1, padded with masks): run(2) and one
+  8. utils path  the ported utilities on the grid main path's end state:
+                 save_psr / load_psr into a fresh grid psr (bit for bit on
+                 the card), continued by a GMM_opt and a Reg_opt with no
+                 free-energy increase; a Deformetrica output directory of
+                 that state replayed by load_deformetrica_output (template,
+                 control points and momenta read back bit for bit, each
+                 step of the warped templates within 1e-5 of a float64
+                 plain step, their end-to-end distance printed beside the
+                 float32 plain version's); Gridlines of 128 lines x 512
+                 points registered forward (within 1e-5 of float64) and
+                 backward (printed: that inverse diverges at this state)
+                 and shot with speeds;
+                 profiling.trace around one loss+grad (the trace names the
+                 five RHS kernels) with phase_timer and timings_summary;
+  9. decim main path  the same workload with decim support (each frame's own
+                 greedy cover at rho = 1, padded with masks): run(1) and one
                  stepwise Reg_opt; the support sizes a frame (decim_M), its
                  set-up seconds (the decimation included), peak memory, its
                  FE sequence bit for bit as first recorded, and the
                  objective and gradient at its end against the float64
                  table kernels;
-  9. decim route agreement  that workload at 3 x 4,000 points through the
+ 10. decim route agreement  that workload at 3 x 4,000 points through the
                  kernel route and the dense route: the FE sequences within
                  5e-3;
- 10. grid route agreement  the same workload at 3 x 4,000 points through the
+ 11. grid route agreement  the same workload at 3 x 4,000 points through the
                  kernel route and the dense route;
- 11. api grid    icp_two_set and icp_atlas with default numerical options;
- 12. profile     a torch.profiler trace of one outer iteration of the grid
+ 12. api grid    icp_two_set and icp_atlas with default numerical options;
+ 13. profile     a torch.profiler trace of one outer iteration of the grid
                  main path, cut to one L-BFGS step (reg_nmax = 1):
                  device-busy share, top CUDA operations, launches, host time
                  between launches;
- 13. check eta   the gradcomponent (eta != 0) slice's kernels against their
+ 14. check eta   the gradcomponent (eta != 0) slice's kernels against their
                  plain versions in float64: the generic kernel-sum (ksum) at
                  3, 6, 9, 20 and 121 columns (d = 2) and 333 (d = 3), masked,
                  several frames, a shared y and a split y axis, and at its
@@ -61,56 +75,56 @@ Phases, each printing JSON lines with its seconds:
                  instances of the self and ext forward kernels; the ETA
                  instances at eta = 0 against the eta = 0 kernels (self:
                  within 1e-5, ext: bit for bit);
- 14. timing eta  each of them at the shapes the two eta paths give it, first
+ 15. timing eta  each of them at the shapes the two eta paths give it, first
                  held against its float64 plain version there, then timed
                  beside its plain version and its bound; then the direct
                  forwards (the any-eta self forward, the ext forward) at
                  d = 3 likewise; the direct forwards and the grid path's
                  kernels are timed by their device time too (device_ms);
- 15. grid eta path  the grid main path with gradcomponent_LDDMM (version
+ 16. grid eta path  the grid main path with gradcomponent_LDDMM (version
                  "logdet", eta = 1/500), from start momenta computed with the
                  kernel-sum's float64 plain version, so that the sequence it
                  prints depends on the kernels only along the trajectory;
                  at its end the objective and its gradient through ksum
                  against those through the float64 plain version;
- 16. dense eta path  examples/run_large.py's configuration with version
+ 17. dense eta path  examples/run_large.py's configuration with version
                  "logdet" (eta = 1/200) at N = 8,192, driven as
                  run_large.main drives DiffPSR; before it, the stability of
                  its start (v2p's momenta for a zero field, one shoot) at
                  8,192, 16,384 and 32,768 points, in float32 on the kernels
                  and in float64 on their plain versions, which sets that size;
- 17. eta route agreement  the grid eta workload at 3 x 8,000 points through
+ 18. eta route agreement  the grid eta workload at 3 x 8,000 points through
                  the kernel route and the dense route (one outer
                  iteration and a stepwise Reg_opt); and the generated
                  backward's float32 error at the grid path's geometry against
                  float64 dense autograd (the poly-precision line);
- 18. api eta     icp_two_set and icp_atlas with gradcomponent_LDDMM=True,
+ 19. api eta     icp_two_set and icp_atlas with gradcomponent_LDDMM=True,
                  one iteration each;
- 19. profile eta a torch.profiler trace of one outer iteration of the grid
+ 20. profile eta a torch.profiler trace of one outer iteration of the grid
                  eta path, cut to 5 EM steps and one L-BFGS step of 4 inner
                  iterations, with the host operators by their own CPU time;
- 20. check cross the cross forward kernel (rows against a different column
+ 21. check cross the cross forward kernel (rows against a different column
                  set: rhs_cross_fwd, and its ETA instance) against its plain
                  version in float64, distinct sets of 16,384 and 65,536 points
                  with holes, d = 2 and 3, rows also shuffled; its ETA
                  instance at eta = 0 within 1e-5, its self entry bit for bit;
- 21. timing cross each instance at its ring path's shape, held against its
+ 22. timing cross each instance at its ring path's shape, held against its
                  plain version there, then timed beside it and its bound; the
                  same for ksum at every kernel-sum of both ring paths (the
                  generated cross backward's two tables, the cross
                  Hamiltonian's three);
- 22. ring twoset path  the point-sharded two-set registration
+ 23. ring twoset path  the point-sharded two-set registration
                  (parallel/twoset.py over parallel/ring.py) at world size 1
                  over NCCL on run_large's problem at 65,536 points: two
                  make_twoset_step calls against the single-device alternation
                  (EM + lddmm.optimize) at the same budgets, the start loss and
                  gradient against the dense path's, seconds per step and per
                  loss+grad, exact launch counts;
- 23. ring eta path  the same with version "logdet" at 8,192 points, one
+ 24. ring eta path  the same with version "logdet" at 8,192 points, one
                  step from the momenta DiffPSR.initialize_a0 gives (zero
                  momenta carry the gradcomponent field, whose shoot diverges
                  on these clouds).
- 24. multi structure path  examples/run_full.py's three-structure atlas at
+ 25. multi structure path  examples/run_full.py's three-structure atlas at
                  full width: 10 frames of a spiral, a circle and a bar of
                  21,000-22,699 points each drawn on the card (random_p's
                  rff_cg sampler, then a dense shoot a frame; its CG residual
@@ -119,18 +133,18 @@ Phases, each printing JSON lines with its seconds:
                  memory, launches per loss+grad, the sigmas; then each kernel
                  on the path's own inputs (padded rows inside the row axis)
                  against its float64 plain version;
- 25. affine atlas path  the grid main path's frames through icp_atlas with
+ 26. affine atlas path  the grid main path's frames through icp_atlas with
                  {"set": 0, "C": 20} for rigid, similarity and general
                  affine, 3 outer iterations each (no kernel: the EM and the
                  batched closed-form fits), det(M) ranges; AffinePSR.run(3)
                  against 3 stepwise iterations within 5e-3;
- 26. auto lambda path  icp_two_set with lambda_LDDMM "auto" on two spiral
+ 27. auto lambda path  icp_two_set with lambda_LDDMM "auto" on two spiral
                  frames of 16,384 points (the calibration's Ralston shoots
                  on rows #1 and #4), 2 outer iterations on grid support; the
                  calibration against the self kernels' float32 plain versions
                  from the same start momenta (h0_ref, lambda), and v2p's
                  start on the plain versions with both starts' residuals.
- 27. check kred  the standard algorithm's kernel-sums (KRed on ksum, as
+ 28. check kred  the standard algorithm's kernel-sums (KRed on ksum, as
                  kred_scal takes them in data_distance; mdivsum) against
                  their float64 plain versions at the standard paths' shapes:
                  the atlas's <fy, fx> and <fx, fx> at 10 x 65,536 x 65,536,
@@ -138,34 +152,34 @@ Phases, each printing JSON lines with its seconds:
                  (dx + dy in one tensor, db); values and gradients; then
                  each timed (events and device time) beside its float32
                  plain version and its ksum calls' bound;
- 28. standard atlas path  standard_atlas on the grid main path's frames
+ 29. standard atlas path  standard_atlas on the grid main path's frames
                  (10 x 65,536, the template frame 0's 65,536 points, grid
-                 support at sigma = 0.05, sigma_data 0.1, noise_std 0.2, 3
+                 support at sigma = 0.05, sigma_data 0.1, noise_std 0.2, 2
                  iterations): seconds, the E sequence with no increase,
                  launches per loss+grad, peak memory; then each kernel of
                  the path on its own end state against float64;
- 29. standard two-set path  standard_two_set of two such frames with dense
-                 support (65,536 support points, sigma = 0.1), 3 iterations
+ 30. standard two-set path  standard_two_set of two such frames with dense
+                 support (65,536 support points, sigma = 0.1), 2 iterations
                  of nmax_per_iter 4, held and printed likewise, then a
                  "rigid" standard two-set on the same pair;
- 30. standard route agreement  the standard atlas at 3 x 2,048 points on
+ 31. standard route agreement  the standard atlas at 3 x 2,048 points on
                  the kernel route and on the dense route: E sequences within
                  5e-3.
- 31. offload atlas path  HostOffloadAtlas (models/offload.py) on the grid
+ 32. offload atlas path  HostOffloadAtlas (models/offload.py) on the grid
                  main path's problem at 40 frames of 65,536 points held in
-                 pinned host memory, streamed in chunks of 10 frames, run(2):
+                 pinned host memory, streamed in chunks of 10 frames, run(1):
                  seconds, FE, host-device bytes an outer iteration, launches
                  a loss+grad, peak device memory;
- 32. offload agreement  the same at 10 frames in chunks of 5 against
-                 DiffPSR with all 10 on the card (em_tol = 0): FE within
-                 5e-3, warped points at rtol 5e-2 / atol 5e-3 after the
-                 first outer iteration, both peaks, and the 40-frame peak at
+ 33. offload agreement  the same at 10 frames in chunks of 5 against
+                 DiffPSR with all 10 on the card (em_tol = 0), one outer
+                 iteration: FE within 5e-3, warped points at rtol 5e-2 /
+                 atol 5e-3, both peaks, and the 40-frame peak at
                  most 1.25 times DiffPSR's;
- 33. atlas step path  the frame-parallel atlas step (parallel/atlas.py) at
+ 34. atlas step path  the frame-parallel atlas step (parallel/atlas.py) at
                  world size 1 over NCCL at 10 x 65,536 on the grid: 3 steps
                  threading the step sizes, 3 with the curvature memory, the
                  first against the single-device alternation within 5e-3;
- 34. blockwise path  the blockwise route (ops/blockwise.py) forced: the
+ 35. blockwise path  the blockwise route (ops/blockwise.py) forced: the
                  grid route agreement's workload against the kernel route,
                  one loss+grad of run_large's dense problem at 65,536 points
                  against the kernel route (peak under 8 GiB), and the
@@ -256,6 +270,11 @@ GRID_FE_BEFORE = [22501056.0, -1347923.375, -1393268.25, -1414657.25]
 # the decim main path's free energies as this script printed them first
 # (held bit for bit: the decimation and the kernels are deterministic)
 DECIM_FE_BEFORE = [22501056.0, -1340335.875, -1352068.5, -1353956.375]
+# The paths below were cut to one outer iteration to keep the script inside its
+# time limit.  Each is held bit for bit to *_RUN1: the leading entries of its
+# earlier sequence that stay (the start and the first iteration), then the
+# stepwise Reg_opt after one iteration as this script first printed it
+DECIM_FE_RUN1 = DECIM_FE_BEFORE[:2] + [-1350286.875]
 DENSE_FE_DIRECT = [-134942.6875, -135171.546875]
 DENSE_FE_BEFORE = [-134947.359375, -135175.125]
 # dq of the eta = 0 backward at the dense main path's geometry (a spiral of
@@ -309,6 +328,8 @@ GRID_ETA_FE_DIRECT_FWD = [-1339679.0, -1442487.75, -1484406.875]
 DENSE_ETA_FE_DIRECT_FWD = ([-16926.025390625] + [-16926.04296875] * 2
                            + [-16959.234375] * 3)
 GRID_ETA_FE_BEFORE = [-1339705.25, -1444913.875, -1496632.75]
+# cut to one outer iteration (see DECIM_FE_RUN1)
+GRID_ETA_FE_RUN1 = GRID_ETA_FE_BEFORE[:1] + [-1354102.625]
 DENSE_ETA_FE_BEFORE = ([-16920.896484375, -16920.9453125, -16921.06640625]
                        + [-16955.337890625] * 3)
 # the point-sharded two-set path (parallel/): run_large's problem, at world
@@ -362,7 +383,7 @@ TOL_CALIB = 5e-2
 STD_FRAMES = 10
 STD_N = 65536
 STD_MODEL = {"sigma_data": 0.1, "noise_std": 0.2}
-STD_ITERS = 3
+STD_ITERS = 2
 STD_ROUTE_N = 2048
 
 
@@ -1322,7 +1343,7 @@ def phase_grid_route_agreement(backend):
         backend.set_backend(mode)
         try:
             psr = grid_psr(3, 4000)
-            psr.run(2, **GRID_RUN)
+            psr.run(1, **GRID_RUN)
             psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
             torch.cuda.synchronize()
         finally:
@@ -1340,7 +1361,7 @@ def phase_grid_route_agreement(backend):
 def phase_decim_main_path(counters, orders):
     """The grid main path's workload (10 x 65,536 points, sigma = 0.05) with
     decim support, the JAX package's default scheme: each frame's own greedy
-    cover at r = rho sigma, padded to one width with masks.  DiffPSR.run(2)
+    cover at r = rho sigma, padded to one width with masks.  DiffPSR.run(1)
     and one stepwise Reg_opt (its coverage pass: kmin2 over the (nt + 1) K
     frames with the per-frame masks); then the objective and its gradient at
     the path's end against the float64 table kernels', and each kernel of the
@@ -1365,7 +1386,7 @@ def phase_decim_main_path(counters, orders):
     decim_m = [int(c) for c in psr.qmask.sum(1).tolist()]
     fe0 = psr.FE
     t1 = time.perf_counter()
-    fes = psr.run(2, **GRID_RUN)
+    fes = psr.run(1, **GRID_RUN)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     t2 = time.perf_counter()
@@ -1381,7 +1402,7 @@ def phase_decim_main_path(counters, orders):
     emit({"phase": "decim_main_path", "frames": k, "n_points": n, "rho": psr.rho,
           "decim_M": decim_m, "support_width": int(psr.q0.shape[1]),
           "sigma_lddmm": GRID_SIGMA, "setup_seconds": setup, "run_seconds": run_s,
-          "seconds_per_outer_iteration": run_s / 2, "reg_opt_seconds": reg_s,
+          "seconds_per_outer_iteration": run_s, "reg_opt_seconds": reg_s,
           "seconds": seconds, "FE_sequence": fe_seq,
           "fe_increase_events": psr.fe_increase_events,
           "uncovered": psr.last_reg_stats["uncovered"].cpu().tolist(),
@@ -1401,7 +1422,7 @@ def phase_decim_main_path(counters, orders):
         fail("decim_main_path", "free energy did not decrease over the run")
     if tuple(psr.x1.shape) != (k, n, 2) or not bool(torch.isfinite(psr.x1).all()):
         fail("decim_main_path", "warped points have the wrong shape or are not finite")
-    hold_fes("decim_main_path", fe_seq, {}, DECIM_FE_BEFORE)
+    hold_fes("decim_main_path", fe_seq, {}, DECIM_FE_RUN1)
     hold_end_state("decim_main_end_state", psr, float64_table_kernels)
 
     nx, m, d = psr.x0.shape[1], psr.q0.shape[1], psr.D  # the padded widths
@@ -1437,7 +1458,7 @@ def phase_decim_main_path(counters, orders):
 
 def phase_decim_route_agreement(backend):
     """The decim main path's workload at 3 x 4,000 points through the kernel
-    route and the dense route on the card: run(2) and one stepwise Reg_opt,
+    route and the dense route on the card: run(1) and one stepwise Reg_opt,
     the FE sequences entry by entry within TOL_ROUTE_FE."""
     import torch
 
@@ -1448,7 +1469,7 @@ def phase_decim_route_agreement(backend):
         try:
             psr = grid_psr(3, 4000, scheme="decim")
             fe0 = psr.FE
-            run = psr.run(2, **GRID_RUN)
+            run = psr.run(1, **GRID_RUN)
             psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
             torch.cuda.synchronize()
         finally:
@@ -2134,14 +2155,14 @@ def grid_eta_psr(ks):
         return grid_psr(10, 65536, version="logdet")
 
 
-def grid_eta_run(psr):
-    """The grid eta path after its set-up: run(2) and one stepwise Reg_opt.
-    The FE sequence (the two iterations', then the Reg_opt's), and the
+def grid_eta_run(psr, iters=1):
+    """The grid eta path after its set-up: run(iters) and one stepwise
+    Reg_opt.  The FE sequence (the iterations', then the Reg_opt's), and the
     seconds of each."""
     import torch
 
     t1 = time.perf_counter()
-    fes = psr.run(2, **GRID_RUN)
+    fes = psr.run(iters, **GRID_RUN)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     t2 = time.perf_counter()
@@ -2152,7 +2173,7 @@ def grid_eta_run(psr):
 
 def phase_grid_eta_path(counters, ks):
     """The grid main path with the gradcomponent model (version "logdet",
-    eta = 1/500): DiffPSR set-up (grid_eta_psr), run(2) and one stepwise
+    eta = 1/500): DiffPSR set-up (grid_eta_psr), run(1) and one stepwise
     Reg_opt."""
     import torch
 
@@ -2177,7 +2198,7 @@ def phase_grid_eta_path(counters, ks):
     rec = {"phase": "grid_eta_path", "frames": k, "n_points": n,
            "grid_M": int(psr.q0.shape[1]), "sigma_lddmm": GRID_SIGMA, "eta": psr.lcfg.eta,
            "setup_seconds": setup, "run_seconds": run_s,
-           "seconds_per_outer_iteration": run_s / 2, "reg_opt_seconds": reg_s,
+           "seconds_per_outer_iteration": run_s, "reg_opt_seconds": reg_s,
            "seconds": time.perf_counter() - t0, "FE_sequence": fe_seq,
            "fe_increase_events": psr.fe_increase_events,
            "uncovered": psr.last_reg_stats["uncovered"].cpu().tolist(),
@@ -2197,7 +2218,7 @@ def phase_grid_eta_path(counters, ks):
     hold_fes("grid_eta_path", fe_seq, {"fp32_ksum": GRID_ETA_FE_FP32_KSUM,
                                            "float64_ksum": GRID_ETA_FE_FLOAT64_KSUM,
                                            "direct_fwd": GRID_ETA_FE_DIRECT_FWD[:1]},
-                 GRID_ETA_FE_BEFORE)
+                 GRID_ETA_FE_RUN1)
     hold_end_state("grid_eta_end_state", psr, lambda: float64_ksum(ks))
     return psr, flat
 
@@ -3597,6 +3618,7 @@ def phase_standard_route_agreement(backend, standard_atlas):
 OFFLOAD_FRAMES = 40
 OFFLOAD_CHUNK = 10
 OFFLOAD_AGREE = (10, 5)  # frames, chunk
+OFFLOAD_ITERS = 1  # outer iterations of the offload atlas path and agreement
 OFFLOAD_PEAK_RATIO = 1.25
 TOL_X1 = (5e-2, 5e-3)  # rtol, atol
 BLOCKWISE_PEAK_BYTES = 8 * 2**30
@@ -3624,7 +3646,7 @@ def x1_agreement(x1, ref):
 def phase_offload_atlas_path(counters, orders):
     """HostOffloadAtlas on the grid main path's problem at OFFLOAD_FRAMES
     frames of 65,536 points, grid support (rho = 1), chunks of
-    OFFLOAD_CHUNK frames, run(2) at GRID_RUN's budgets: set-up and seconds
+    OFFLOAD_CHUNK frames, run(1) at GRID_RUN's budgets: set-up and seconds
     an outer iteration, the FE sequence, the grid's M, launches a loss+grad,
     host-device bytes an outer iteration and the peak device memory."""
     import torch
@@ -3640,7 +3662,7 @@ def phase_offload_atlas_path(counters, orders):
     setup = time.perf_counter() - t0
     reset(*counters.values(), orders)
     fes, iter_s, h2d, d2h = [], [], [], []
-    for _ in range(2):
+    for _ in range(OFFLOAD_ITERS):
         b_up, b_down = atlas.bytes_h2d, atlas.bytes_d2h
         t1 = time.perf_counter()
         fes += [float(f) for f in atlas.run(1, **GRID_RUN)]
@@ -3675,13 +3697,13 @@ def phase_offload_atlas_path(counters, orders):
 
 def phase_offload_agreement(counters, offload_peak):
     """The grid main path's problem at 10 frames, em_tol = 0 and GRID_RUN's
-    other budgets, 2 outer iterations: HostOffloadAtlas in chunks of 5
+    other budgets, one outer iteration: HostOffloadAtlas in chunks of 5
     against DiffPSR with all 10 frames on the card (GMM_opt then Reg_opt,
-    the latter with its coverage pass): FE within TOL_ROUTE_FE after each
-    outer iteration, warped points at TOL_X1 after the first (after the
-    second only printed: there DiffPSR with its Reg_opt in chunks of 5
-    frames, the same work batched otherwise, already differs from DiffPSR
-    by more than TOL_X1 allows); both peaks, and offload_atlas_path's peak
+    the latter with its coverage pass): FE within TOL_ROUTE_FE, warped
+    points at TOL_X1 (a second iteration, whose points were only printed,
+    is no longer run: there DiffPSR with its Reg_opt in chunks of 5 frames,
+    the same work batched otherwise, already differs from DiffPSR by more
+    than TOL_X1 allows); both peaks, and offload_atlas_path's peak
     (``offload_peak``, 40 frames in chunks of 10) at most
     OFFLOAD_PEAK_RATIO times this DiffPSR's."""
     import torch
@@ -3696,7 +3718,7 @@ def phase_offload_agreement(counters, offload_peak):
     atlas = HostOffloadAtlas(x, state, gcfg, lcfg, chunk_frames=chunk, device="cuda")
     atlas.set_support_scheme("grid", rho=1.0)
     fes_off, x1_off = [], []
-    for _ in range(2):
+    for _ in range(OFFLOAD_ITERS):
         fes_off += [float(f) for f in atlas.run(1, **run_kw)]
         x1_off.append(atlas.x1[:k].cuda())
     torch.cuda.synchronize()
@@ -3720,7 +3742,7 @@ def phase_offload_agreement(counters, offload_peak):
         psr.set_support_scheme("grid", rho=1.0)
         reset(*counters.values())
         fes_psr[mode], x1_psr[mode] = [], []
-        for _ in range(2):
+        for _ in range(OFFLOAD_ITERS):
             psr.GMM_opt(max_iterations=run_kw["max_em"], tol=0.0)
             psr.Reg_opt(tol=run_kw["reg_tol"], nmax=run_kw["reg_nmax"],
                         inner=run_kw["reg_inner"], ls_steps=run_kw["reg_ls"], frame_chunk=fc)
@@ -3855,7 +3877,7 @@ def phase_atlas_step_path(counters):
 
 def phase_blockwise_path(counters, backend):
     """The blockwise route (ops/blockwise.py), forced: (a) the grid route
-    agreement's workload (3 x 4,000 points, run(2) and a stepwise Reg_opt)
+    agreement's workload (3 x 4,000 points, run(1) and a stepwise Reg_opt)
     on it and on the kernel route, FE within TOL_ROUTE_FE, no kernel
     launched on it; (b) one loss+grad of run_large's dense problem at
     65,536 points on it against the kernel route at the same non-zero
@@ -3876,7 +3898,7 @@ def phase_blockwise_path(counters, backend):
             reset(*counters.values())
             t1 = time.perf_counter()
             psr = grid_psr(3, 4000)
-            psr.run(2, **GRID_RUN)
+            psr.run(1, **GRID_RUN)
             psr.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
             torch.cuda.synchronize()
             secs[mode] = time.perf_counter() - t1
@@ -3969,6 +3991,344 @@ def phase_blockwise_path(counters, backend):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the utilities on the grid main path's state: checkpoints, the Deformetrica
+# replay, the deformation grid, the trace
+# ---------------------------------------------------------------------------
+
+# the gridlines step: 64 x 64 ticks, 512 points a line, so 128 lines of 65,536
+# points in all: 65,536 x 380 support pairs, above the dense pair limit
+UTILS_TICKS = 64
+UTILS_LINE_POINTS = 512
+# the Deformetrica replay's model (sigma_LDDMM the grid's: the momenta are
+# the grid main path's)
+DFCA_MODEL = dict(sigma_data=0.1, noise_std=0.2, sigma_lddmm=GRID_SIGMA)
+# the five eta = 0 RHS kernels by the CUDA symbols a trace names them with
+# (csrc/rhs_self.cu's table kernel, csrc/direct.cuh's ext forward,
+# csrc/rhs_ext.cu's table kernels), d = 2
+RHS_SYMBOLS = {"rhs_self_fwd": "rhs_table_kernel<2, false",
+               "rhs_self_bwd": "rhs_table_kernel<2, true",
+               "rhs_ext_fwd": "ExtFwd<2, false>",
+               "rhs_ext_bwd_dx": "DxSpec<2>",
+               "rhs_ext_bwd_dqdp": "DqdpSpec<2>"}
+
+
+@contextlib.contextmanager
+def dense_route():
+    """The dense route forced inside the block (the plain functions)."""
+    from difficp_torch.ops import backend
+
+    backend.set_backend("dense")
+    try:
+        yield
+    finally:
+        backend.set_backend(None)
+
+
+def hold_shoot(cfg, q, a, x, qmask, got, backward=False):
+    """A warp of the external points x through rows #1 and #6 (``got``, the
+    kernel route's, float32) against float64: its distance from the float64
+    plain shoot (``end_to_end``) beside the float32 plain shoot's
+    (``plain32_end_to_end``), and each Euler step of the kernel route's own
+    trajectory against one float64 plain step from the same state
+    (``local_steps``: the kernels' error where their inputs are the path's),
+    all relative to the largest |coordinate| of the float64 result, and the
+    float64 result's own change when a is perturbed at float32 rounding
+    (2^-24 relative).  Ten steps amplify the state's float32 rounding by as
+    much as the kernels' error on these trajectories, so the end-to-end
+    figures measure that, the local steps the kernels."""
+    import torch
+    from difficp_torch.models import lddmm
+    from difficp_torch.models.registration import LDDMMRegistration
+
+    def warp(q, a, m, save_traj=False):
+        # the handle's shoot in q's dtype, on the route the backend picks
+        return LDDMMRegistration(cfg, q, a, m).shoot(x, backward=backward,
+                                                     save_traj=save_traj)
+
+    assert cfg.scheme == "Euler"
+    q8, a8 = q.double(), a.double()
+    m8 = None if qmask is None else qmask.double()
+    g = torch.Generator(device=q.device).manual_seed(0)
+    a8p = a8 * (1 + 2.0 ** -24 * torch.randn(a8.shape, generator=g, device=q.device,
+                                             dtype=torch.float64))
+    with dense_route():
+        fin64, tr64 = warp(q8, a8, m8, save_traj=True)
+        y64 = fin64.x
+        y64p = warp(q8, a8p, m8)[0].x
+        y32 = warp(q, a, qmask)[0].x
+    _, traj = warp(q, a, qmask, save_traj=True)
+    scale = float(y64.abs().max())
+    local = []
+    with dense_route(), torch.no_grad():
+        ode = lddmm._ode(cfg, m8, None, None, None)
+        for t in range(cfg.nt):
+            st = lddmm.ShootState(q=traj.q[t].double(), p=traj.p[t].double(),
+                                  cost=traj.cost[t].double(), x=traj.x[t].double())
+            nxt = st.x + ode(st).x / cfg.nt
+            local.append(float((traj.x[t + 1].double() - nxt).abs().max()) / scale)
+    finite = [bool(torch.isfinite(traj.x[t]).all() and torch.isfinite(traj.p[t]).all())
+              for t in range(cfg.nt + 1)]
+    return {"end_to_end": rel_err(got, y64), "plain32_end_to_end": rel_err(y32, y64),
+            "local_steps": local, "local_max": max(local),
+            "finite": bool(all(finite) and torch.isfinite(got).all()
+                           and torch.isfinite(y64).all()),
+            "first_nonfinite_step": finite.index(False) if False in finite else None,
+            "max_abs_p": float(traj.p.abs().max()),
+            "max_abs_q_p_float64": [float(tr64.q.abs().max()), float(tr64.p.abs().max())],
+            "float64_sensitivity_to_a0_rounding": rel_err(y64p, y64)}
+
+
+def utils_checkpoint(psr, counters, orders, tmp):
+    """save_psr the grid main path's psr, load_psr into a fresh grid_psr of
+    the same frames (the same grid), every array bit for bit on the card and
+    the FE the saved one; then one GMM_opt and one stepwise Reg_opt of the
+    loaded psr: no free-energy increase, the FE at most the loaded one, the
+    five RHS kernels and kmin2 launched."""
+    import os
+
+    import torch
+    from difficp_torch.utils import checkpoint
+
+    path = os.path.join(tmp, "grid_psr")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_psr(path, psr)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path + ".npz")
+    fresh = grid_psr(psr.K, int(psr.structs[0].n[0]))  # the same frames, so the same grid
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    checkpoint.load_psr(path, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    pairs = [(name, getattr(fresh, name), getattr(psr, name))
+             for name in ("x1", "y", "ptw", "regloss", "quadloss", "a0", "q0", "qmask")]
+    pairs += [(f"gmm{s}_{f}", a, b) for s, (g, h) in enumerate(zip(fresh.gmm, psr.gmm))
+              for f, a, b in zip(g._fields, g, h)]
+    pairs += [(f"Cfe{s}", a, b) for s, (a, b) in enumerate(zip(fresh.Cfe, psr.Cfe))]
+    differ = [name for name, a, b in pairs
+              if not (a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b))]
+    fe_loaded = fresh.FE
+    reset(*counters.values(), orders)
+    t2 = time.perf_counter()
+    fresh.GMM_opt()
+    fresh.Reg_opt(tol=1e-3, nmax=1, inner=10, ls_steps=12)
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t2
+    flat = {key: v for key, v in flat_counts(counters).items() if key in ETA0_KERNELS}
+    rec = {"phase": "utils_path", "step": "checkpoint", "file_bytes": nbytes,
+           "save_seconds": save_s, "load_seconds": load_s, "arrays": len(pairs),
+           "arrays_not_equal_on_cuda": differ, "FE_saved": psr.FE, "FE_loaded": fe_loaded,
+           "continued_seconds": cont_s, "FE_continued": fresh.FE,
+           "fe_increase_events": fresh.fe_increase_events, "launches": flat}
+    emit(rec)
+    if differ or fe_loaded != psr.FE:
+        fail("utils_path", f"checkpoint not bit for bit on the card: {differ}")
+    if fresh.fe_increase_events or not fresh.FE <= fe_loaded:
+        fail("utils_path", "the loaded psr's free energy rose")
+    if not all(v > 0 for v in flat.values()):
+        fail("utils_path", f"a kernel of the continued path never launched: {flat}")
+    del fresh
+    torch.cuda.empty_cache()
+    return flat
+
+
+def utils_deformetrica(psr, counters, orders, tmp):
+    """A Deformetrica output directory from the grid main path's state (the
+    template frame 0's points as VTK, the control points the grid, the
+    momenta psr.a0 as exact text) replayed by load_deformetrica_output on
+    the card: the template, control points and momenta read back bit for
+    bit, each Euler step of the warped templates (10 x 65,536 through rows
+    #1 and #6) within TOL_FWD of a float64 plain step from the same state,
+    their end-to-end distance from a float64 plain shoot printed beside the
+    float32 plain shoot's (hold_shoot), E finite, rows #1, #6 and #13
+    launched."""
+    import os
+
+    import numpy as np
+    import torch
+    from difficp_torch.api.deformetrica_atlas import load_deformetrica_output
+    from difficp_torch.utils.spec import on_cpu
+    from difficp_torch.utils.vtk_io import write_landmarks
+
+    out = os.path.join(tmp, "deformetrica")
+    os.makedirs(out)
+    stem = os.path.join(out, "DeterministicAtlas__EstimatedParameters__")
+    frames = [psr.get_data_points(k) for k in range(psr.K)]
+    template = frames[0]
+    q0, a0 = on_cpu(psr.q0[0]), on_cpu(psr.a0)
+    t0 = time.perf_counter()
+    write_landmarks(stem + "Template_pointset.vtk", template)
+    np.savetxt(stem + "ControlPoints.txt", q0)
+    with open(stem + "Momenta.txt", "w") as f:
+        f.write(f"{a0.shape[0]} {a0.shape[1]} {a0.shape[2]}\n\n")
+        np.savetxt(f, a0.reshape(-1, a0.shape[2]), fmt="%.17g")
+    write_s = time.perf_counter() - t0
+    reset(*counters.values(), orders)
+    t1 = time.perf_counter()
+    replay = load_deformetrica_output(frames, out, device="cuda", **DFCA_MODEL)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t1
+    flat = {key: flat_counts(counters)[key] for key in ("rhs_self_fwd", "rhs_ext_fwd", "ksum")}
+    same = {"template": bool(torch.equal(replay.y0[0].cpu(), torch.as_tensor(template))),
+            "control_points": bool(torch.equal(replay.q0, psr.q0[0])),
+            "momenta": bool(torch.equal(replay.a0, psr.a0))}
+    t2 = time.perf_counter()
+    holds = [hold_shoot(replay.lcfg, replay.q0, replay.a0[k], replay.y0[0], None,
+                        replay.y1[k]) for k in range(replay.K)]
+    check_s = time.perf_counter() - t2
+    local = max(h["local_max"] for h in holds)
+    rec = {"phase": "utils_path", "step": "deformetrica_replay", "frames": replay.K,
+           "template_points": int(replay.ny_tot), "control_points": int(replay.q0.shape[0]),
+           **DFCA_MODEL, "write_seconds": write_s, "replay_seconds": replay_s,
+           "float64_check_seconds": check_s, "read_back_bit_for_bit": same,
+           "y1_local_step_rel_err": local, "tol": TOL_FWD,
+           "y1_end_to_end_rel_err_by_frame": [h["end_to_end"] for h in holds],
+           "plain32_end_to_end_rel_err_by_frame": [h["plain32_end_to_end"] for h in holds],
+           "y1_local_step_rel_err_by_frame": [h["local_max"] for h in holds],
+           "float64_sensitivity_by_frame": [h["float64_sensitivity_to_a0_rounding"]
+                                            for h in holds],
+           "max_abs_p_by_frame": [h["max_abs_p"] for h in holds],
+           "E": replay.E, "launches": flat}
+    emit(rec)
+    if not all(same.values()):
+        fail("utils_path", f"the replay did not read back what was written: {same}")
+    if not (local <= TOL_FWD and all(h["finite"] for h in holds)):
+        fail("utils_path", f"a replayed step {local} from float64, above {TOL_FWD}")
+    if not (math.isfinite(replay.E) and all(v > 0 for v in flat.values())):
+        fail("utils_path", f"replay E not finite or a kernel never launched: {flat}")
+    del replay
+    torch.cuda.empty_cache()
+    return flat
+
+
+def utils_gridlines(psr, counters, orders):
+    """Gridlines over frame 0's bounds (relmargin 0.1), UTILS_TICKS ticks a
+    side and UTILS_LINE_POINTS points a line, through frame 0's registration
+    handle: register forward within TOL_FWD of a float64 plain shoot (end to
+    end and each step: hold_shoot), register backward measured the same way
+    and printed (that inverse diverges at this state, in float64 too: the
+    support's momenta grow to ~4e3, and its float32 plain version lands 0.98
+    of the grid's extent from float64's), shoot(require_v=True)'s nt + 1
+    grids, intersections and speeds, its last grid within TOL_FWD of
+    register's; rows #1 and #6 launched.  Nothing is plotted."""
+    import numpy as np
+    import torch
+    from difficp_torch.viz.grid import Gridlines
+    from difficp_torch.viz.visu import get_bounds
+
+    b = get_bounds(psr.get_data_points(0), relmargin=0.1)
+    gl = Gridlines(np.linspace(b[0], b[1], UTILS_TICKS), np.linspace(b[2], b[3], UTILS_TICKS),
+                   points_per_line=UTILS_LINE_POINTS)
+    reg = psr.Registration(0)
+    reset(*counters.values(), orders)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd = gl.register(reg)
+    bwd = gl.register(reg, backward=True)
+    register_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    grids, inters, speeds = gl.shoot(reg, require_v=True)
+    shoot_s = time.perf_counter() - t1
+    flat = {key: v for key, v in flat_counts(counters).items()
+            if v or key in ("rhs_self_fwd", "rhs_ext_fwd")}
+    pts = torch.as_tensor(gl.get_points(), device="cuda")
+    holds = {name: hold_shoot(reg.cfg, reg.q0, reg.a0, pts, reg.qmask,
+                              torch.as_tensor(got.get_points(), device="cuda"), backward=back)
+             for name, got, back in (("forward", fwd, False), ("backward", bwd, True))}
+    last = rel_err(torch.as_tensor(grids[-1].get_points()),
+                      torch.as_tensor(fwd.get_points()).double())
+    finite = all(np.isfinite(v).all() for v in (*inters, *speeds))
+    rec = {"phase": "utils_path", "step": "gridlines", "lines": len(gl.lines),
+           "points": int(pts.shape[0]), "support_points": int(reg.q0.shape[0]),
+           "grids": len(grids), "intersections": int(inters[0].shape[0]),
+           "register_seconds": register_s, "shoot_seconds": shoot_s, "holds": holds,
+           "shoot_last_vs_register": last, "tol": TOL_FWD, "speeds_finite": finite,
+           "max_speed": max(float(np.abs(v).max()) for v in speeds), "launches": flat}
+    emit(rec)
+    # the backward (a shoot from the arrival with negated momenta) diverges
+    # at this state in float64 too: printed, not held (ROADMAP §3)
+    fw = holds["forward"]
+    if not (fw["end_to_end"] <= TOL_FWD and fw["local_max"] <= TOL_FWD and fw["finite"]
+            and last <= TOL_FWD):
+        fail("utils_path", f"the forward grid is not within {TOL_FWD} of float64: {fw}")
+    if len(grids) != psr.lcfg.nt + 1 or not finite:
+        fail("utils_path", "shoot(require_v=True) gave the wrong number of grids or non-finite "
+                           "speeds")
+    if not (flat["rhs_self_fwd"] > 0 and flat["rhs_ext_fwd"] > 0):
+        fail("utils_path", f"the grid did not take the ext kernels: {flat}")
+    return flat
+
+
+def utils_trace(psr, counters, tmp):
+    """profiling.trace around one loss+grad of the grid psr, inside
+    phase_timer("loss_grad"): the trace file names the five eta = 0 RHS
+    kernels' CUDA symbols; timings_summary()."""
+    import glob
+    import os
+
+    import torch
+    from difficp_torch.utils import profiling
+
+    logdir = os.path.join(tmp, "trace")
+    profiling.timings_summary(reset=True)
+    reset(*counters.values())
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        with profiling.phase_timer("loss_grad", sync=torch.cuda.synchronize):
+            loss, _ = loss_grad(psr)
+    traced_s = time.perf_counter() - t0
+    flat = {key: v for key, v in flat_counts(counters).items() if key in RHS_SYMBOLS}
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    kernels = []
+    if len(files) == 1:
+        with open(files[0]) as f:
+            kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+    named = {key: sum(sym in name for name in kernels) for key, sym in RHS_SYMBOLS.items()}
+    summary = profiling.timings_summary(reset=True)
+    rec = {"phase": "utils_path", "step": "trace", "trace_files": len(files),
+           "trace_bytes": os.path.getsize(files[0]) if files else 0,
+           "traced_seconds": traced_s, "kernel_events": len(kernels),
+           "rhs_kernel_events": named, "launches": flat, "timings_summary": summary,
+           "loss_finite": bool(torch.isfinite(loss).all())}
+    emit(rec)
+    if len(files) != 1 or not all(named.values()):
+        fail("utils_path", f"the trace does not name the five RHS kernels: {named}, "
+                           f"{sorted(set(kernels))[:40]}")
+    if summary.get("loss_grad", {}).get("n") != 1:
+        fail("utils_path", f"phase_timer did not record the loss+grad: {summary}")
+    return flat
+
+
+def phase_utils_path(psr, counters, orders):
+    """The ported utilities on the grid main path's end state (10 x 65,536
+    points, grid support M = 380, after run(2) and a Reg_opt; psr itself is
+    not changed): checkpoint, deformetrica_replay, gridlines, trace, each
+    step with the launch counters set to 0 before it.  Returns the launches
+    of all four steps, summed."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="difficp_utils_")
+    try:
+        steps = [utils_checkpoint(psr, counters, orders, tmp),
+                 utils_deformetrica(psr, counters, orders, tmp),
+                 utils_gridlines(psr, counters, orders),
+                 utils_trace(psr, counters, tmp)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = {}
+    for flat in steps:
+        for key, v in flat.items():
+            total[key] = total.get(key, 0) + v
+    emit({"phase": "utils_path", "step": "done", "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main():
     import torch
 
@@ -4032,6 +4392,7 @@ def main():
     phase_api(rs, backend, icp_two_set, run_large)
     emit({"phase": "api_done", "seconds": time.perf_counter() - t0})
     psr, grid_launches = phase_grid_main_path(counters, rs.orders)
+    utils_launches = phase_utils_path(psr, counters, rs.orders)
     t0 = time.perf_counter()
     decim_launches, worst_decim, kmin2_decim = phase_decim_main_path(counters, rs.orders)
     for name, (rel, ab) in worst_decim.items():
@@ -4153,6 +4514,8 @@ def main():
                             "multi_structure_path": multi_launches[name]}
         if name in auto_launches:
             launches_by_path["auto_lambda_path"] = auto_launches[name]
+        if utils_launches.get(name):
+            launches_by_path["utils_path"] = utils_launches[name]
         for path, counts in [*std_launches_by_path.items(), *frame_paths.items()]:
             if counts.get(name):
                 launches_by_path[path] = counts[name]
@@ -4212,6 +4575,7 @@ def main():
             by_path.update({path["phase"]: path["launches"][name] for path in (ring, ring_eta)})
             by_path.update({path: counts["ksum"] for path, counts in
                             std_launches_by_path.items()})
+            by_path["utils_path"] = utils_launches.get("ksum", 0)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
             "also_replaces": also, "launches": grid_eta_launches[name],

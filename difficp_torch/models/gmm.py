@@ -90,6 +90,12 @@ def _log_gauss_norm(sigma, d):
     return d * (torch.log(sigma) + 0.5 * math.log(2.0 * math.pi))
 
 
+def log_responsibilities(state: GMMState, x):
+    """lgamma_nc (N, C), without outliers (GMM.py:221-232)."""
+    d2 = ((x[:, None, :] - state.mu[None, :, :]) ** 2).sum(-1)
+    return torch.log_softmax(state.w[None, :] - d2 / (2.0 * state.sigma**2), 1)
+
+
 class EMStepOut(NamedTuple):
     state: GMMState
     y: torch.Tensor     # (N, D) quadratic targets

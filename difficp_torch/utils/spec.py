@@ -30,3 +30,11 @@ def as_tensor(x, device, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.detach().to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def on_cpu(x) -> np.ndarray:
+    """Host copy (numpy) of a tensor on any device, or of an array-like,
+    e.g. for matplotlib or a checkpoint."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -7,7 +7,6 @@ bounds and the spiral formula.
 """
 
 import numpy as np
-import pytest
 import torch
 
 from difficp_tpu.examples.spiral import spiral_centroids as j_spiral_centroids
@@ -38,11 +37,16 @@ def test_generators_are_seeded():
                                np.asarray(j_spiral_centroids()), atol=1e-6)
 
 
-def test_examples_run_on_the_cpu():
+def test_examples_run_on_the_cpu(tmp_path, monkeypatch):
     psr = run_basic.main(n_iter=1, device="cpu")
     assert psr.fe_increase_events == 0 and np.isfinite(psr.FE)
-    with pytest.raises(NotImplementedError, match="viz"):
-        run_basic.main(n_iter=1, plot=True, device="cpu")
+    # --plot draws run_basic.png in the working directory (viz/, Agg here)
+    import matplotlib
+
+    matplotlib.use("Agg")
+    monkeypatch.chdir(tmp_path)
+    run_basic.main(n_iter=1, plot=True, device="cpu")
+    assert (tmp_path / "run_basic.png").stat().st_size > 0
     psr, evol = run_multi.main(k=2, n_iter=1, nk_bounds=(20, 26), device="cpu")
     assert psr.K == 2 and psr.fe_increase_events == 0 and len(evol["a0"]) == 1
     psr, _ = run_full.main(k=2, n_iter=1, n_bounds=(10, 14), device="cpu")

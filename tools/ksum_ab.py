@@ -190,7 +190,7 @@ def eta_paths(cs, ks, old):
             psr = cs.grid_eta_psr(ks)
             torch.cuda.synchronize()
             setup = time.perf_counter() - t0
-            fes, run_s, reg_s = cs.grid_eta_run(psr)
+            fes, run_s, reg_s = cs.grid_eta_run(psr, iters=2)
         finally:
             ks.ksum = current
         runs[name] = {"FE_sequence": fes, "setup_seconds": setup, "run_seconds": run_s,
