@@ -28,6 +28,7 @@ import torch
 
 from difficp_torch.ops import backend as _backend
 from difficp_torch.ops.reductions import second_min_sqdist
+from difficp_torch.utils import profiling
 
 
 class GMMConfig(NamedTuple):
@@ -293,12 +294,18 @@ def em_optimization(state: GMMState, x, mask: Optional[torch.Tensor],
     last_fe = torch.zeros_like(cfe)
     gamt = torch.ones_like(mask)
     i = 0
-    while i < max_iterations and (
-            i < 2 or bool((fe - last_fe).abs() >= tol * last_fe.abs())):
-        out = em_step(state, x, mask, cfg, group=group)
-        state, y, cfe, last_fe, fe, gamt = (out.state, out.y, out.cfe, fe,
-                                            out.fe, out.gamt)
-        i += 1
+    while i < max_iterations:
+        # a step's span ends at the stop test's read of its free energy
+        # (steps 1 to max_iterations - 2 have one), else at its dispatch
+        with profiling.span("gmm.em_step", step=i):
+            out = em_step(state, x, mask, cfg, group=group)
+            state, y, cfe, last_fe, fe, gamt = (out.state, out.y, out.cfe, fe,
+                                                out.fe, out.gamt)
+            i += 1
+            go = i < max_iterations and (
+                i < 2 or bool((fe - last_fe).abs() >= tol * last_fe.abs()))
+        if not go:
+            break
     return EMOptOut(state=state, y=y, cfe=cfe, fe=fe, n_iters=i, gamt=gamt)
 
 

@@ -33,6 +33,7 @@ from difficp_torch.ops.solvers import (
     _masked_gram, kpinv_solve, kridge_solve, kridge_solve_cg, rff_gaussian_field,
     svd_pow,
 )
+from difficp_torch.utils import profiling
 from difficp_torch.utils.integrators import integrate
 from difficp_torch.utils.lbfgs import lbfgs_optimize, seed_alpha_for
 
@@ -164,8 +165,9 @@ def _make_lossfn_aux(cfg, dataloss, q0, x0, qmask, xmask):
     arrival points are the warped data x1 when x0 is given, else q1.  q0 and
     x0 are fixed, so the rows' orders are computed once here for every
     evaluation."""
-    order = red.row_order(q0, cfg.sigma, qmask, cfg.eta, x0)
-    xorder = None if x0 is None else red.data_order(x0, q0, cfg.sigma, xmask, cfg.eta)
+    with profiling.span("lddmm.row_order"):
+        order = red.row_order(q0, cfg.sigma, qmask, cfg.eta, x0)
+        xorder = None if x0 is None else red.data_order(x0, q0, cfg.sigma, xmask, cfg.eta)
 
     def lossfn(p):
         final, _ = shoot(cfg, q0, p, x0, qmask, xmask, order=order, xorder=xorder)

@@ -23,6 +23,8 @@ batched call.  ``run()`` is the fused loop's semantics as a Python loop.
 
 from __future__ import annotations
 
+import functools
+import itertools
 import math
 from typing import Optional
 
@@ -34,11 +36,30 @@ from difficp_torch.models import gmm as gmm_mod
 from difficp_torch.models import lddmm as lddmm_mod
 from difficp_torch.models.registration import AffineRegistration, LDDMMRegistration
 from difficp_torch.ops import backend as red
+from difficp_torch.utils import profiling
 from difficp_torch.utils.integrators import tree_map
 from difficp_torch.utils.io import PaddedFrames, pad_frames, pad_structures
 from difficp_torch.utils.lbfgs import zero_memory
 from difficp_torch.utils.point_sets import decimate_sets, grid_support
 from difficp_torch.utils.spec import as_tensor, resolve_device
+
+
+# serial numbers of the registrations made in this process (MultiPSR.serial)
+_SERIALS = itertools.count()
+
+
+def _spanned(name):
+    """A method run inside the span ``name`` of its registration."""
+
+    def wrap(method):
+        @functools.wraps(method)
+        def run(self, *args, **kwargs):
+            with profiling.span(name, psr=self.serial):
+                return method(self, *args, **kwargs)
+
+        return run
+
+    return wrap
 
 
 def _gmm_opt(state, x, mask, cfg, max_iterations, tol, skip_m=False, group=None):
@@ -137,7 +158,15 @@ class MultiPSR:
     ``group``: a ``torch.distributed`` process group over which the frames
     are sharded (``parallel.atlas.shard_psr``), None for all frames here.
     With a group, the EM sums and the free energy's per-frame sums are
-    reduced over it; the registration of each frame is this rank's alone."""
+    reduced over it; the registration of each frame is this rank's alone.
+
+    ``serial``: the registration's number in this process, which its spans
+    carry (``utils/profiling``)."""
+
+    def __new__(cls, *args, **kwargs):
+        self = super().__new__(cls)
+        self.serial = next(_SERIALS)
+        return self
 
     def __init__(self, x, gmm_states, gmm_cfgs, device=None):
         self.device = resolve_device(device)
@@ -241,8 +270,11 @@ class MultiPSR:
             self._apply_gmm_outputs(s, st, y_s, cfe, gamt_s)
         self.update_FE()
 
+    @_spanned("psr.GMM_opt")
     def GMM_opt(self, max_iterations=100, tol=1e-5):
-        """Partial optimization, GMM part (PSR.py:242-271)."""
+        """Partial optimization, GMM part (PSR.py:242-271), after recording
+        the free energy of new start momenta (``_record_start``)."""
+        self._record_start()
         for s in range(self.S):
             pf = self.structs[s]
             st, y_s, cfe, iters, gamt_s = _gmm_opt(
@@ -299,7 +331,9 @@ class MultiPSR:
         """F bookkeeping with monotonicity check (PSR.py:226-236); the one
         host sync per partial step.  With a group the per-frame sums are
         reduced over it, once (the Cfe are already the group's)."""
-        fe = float(self._fe_terms(sum(self.Cfe), self.regloss.sum(), self.quadloss.sum()))
+        with profiling.span("psr.fe_sync"):
+            fe = float(self._fe_terms(sum(self.Cfe), self.regloss.sum(),
+                                      self.quadloss.sum()))
         if self.printstuff and message is not None:
             print(message.ljust(70) + f"Total free energy = {fe:.8}")
         if self.FE is not None and fe > self.FE + 1e-4 * abs(self.FE) + 1e-6:
@@ -338,7 +372,8 @@ class MultiPSR:
         sequence and against the FE before the run (PSR.py:114-127); the
         host bookkeeping is refreshed (``update_GMM_targets``).  Returns the
         sequence as numpy."""
-        fes_host = torch.stack(fes).double().cpu().numpy()
+        with profiling.span("psr.fe_sync"):
+            fes_host = torch.stack(fes).double().cpu().numpy()
         inc = int(np.sum(np.diff(fes_host) > 1e-4 * np.abs(fes_host[:-1]) + 1e-6))
         if self.FE is not None and fes_host[0] > self.FE + 1e-4 * abs(self.FE):
             inc += 1
@@ -353,6 +388,9 @@ class MultiPSR:
             print(f"run({n_iters}) : FE {fes_host[0]:.6} -> {self.FE:.6}")
         return fes_host
 
+    def _record_start(self):
+        """Nothing to record before a step: the start is the set-up's."""
+
     def Reg_opt(self, tol=1e-3, nmax=10):
         raise NotImplementedError
 
@@ -360,6 +398,7 @@ class MultiPSR:
 class DiffPSR(MultiPSR):
     """MultiPSR with diffeomorphic (LDDMM) registrations (PSR.py:354-569)."""
 
+    @_spanned("psr.init")
     def __init__(self, x, gmm_states, gmm_cfgs,
                  lddmm_cfg: lddmm_mod.LDDMMConfig, device=None):
         super().__init__(x, gmm_states, gmm_cfgs, device)
@@ -415,12 +454,6 @@ class DiffPSR(MultiPSR):
         self.x1 = final.x if use_ext else final.q
         self.FE = None
         self.update_GMM_targets()
-
-    def GMM_opt(self, max_iterations=100, tol=1e-5):
-        """Partial optimization, GMM part (PSR.py:242-271), after recording
-        the free energy of new start momenta."""
-        self._record_start()
-        super().GMM_opt(max_iterations, tol)
 
     def update_a0(self, q0_prev, qmask_prev, a0_prev=None, rcond=1e-1):
         """Project the previous vector field onto the new support
@@ -481,6 +514,7 @@ class DiffPSR(MultiPSR):
         # pairs refer to the old support and are meaningless now
         self._reg_memory = None
 
+    @_spanned("psr.Reg_opt")
     def Reg_opt(self, tol=1e-3, nmax=10, inner=20, ls_steps=25,
                 carry_memory=False, carry_value=False, frame_chunk=None):
         """LDDMM registration optimization (PSR.py:521-569): ``nmax`` outer

@@ -26,6 +26,7 @@ import torch
 
 from difficp_torch.ops import _build
 from difficp_torch.ops.rhs_self import _check, _chunk_rows, _frames, _ones_mask, _raise_on
+from difficp_torch.utils import profiling
 
 # kernel launches since the last reset (reset by assigning 0)
 launches = {"kmin2": 0}
@@ -109,9 +110,11 @@ def kmin2(x, y, mask_y=None, exclude_self=False):
     if exclude_self and x.shape != y.shape:
         raise ValueError("exclude_self needs x and y of one shape (x is y)")
     if x.device.type == "cpu":
-        return kmin2_reference(x, y, mask_y, exclude_self)
+        with profiling.span("ops.kmin2"):
+            return kmin2_reference(x, y, mask_y, exclude_self)
     if x.device.type != "cuda":
         raise ValueError(f"kmin2: unsupported device {x.device}")
+    call = profiling.span("ops.kmin2")
     nb, n, d = _frames(x)
     _, m, dy = _frames(y)
     if tuple(x.shape[:-2]) != tuple(y.shape[:-2]) or d != dy:
@@ -128,4 +131,5 @@ def kmin2(x, y, mask_y=None, exclude_self=False):
         nb, n, m, d, TILE, int(bool(exclude_self)), stream)
     _raise_on(err, "kmin2")
     launches["kmin2"] += 1
+    call.end()
     return m1, m2

@@ -38,6 +38,7 @@ import torch
 
 from difficp_torch.ops import _build
 from difficp_torch.ops.rhs_self import _check, _chunk_rows, _frames, _raise_on
+from difficp_torch.utils import profiling
 
 # kernel launches since the last reset (reset by assigning 0)
 launches = {"ksum": 0}
@@ -177,9 +178,11 @@ def ksum(x, y, table, my, sigma):
     None (all ones).  CPU tensors take the plain version; CUDA tensors launch
     the kernel."""
     if x.device.type == "cpu":
-        return ksum_reference(x, y, table, my, sigma)
+        with profiling.span("ops.ksum"):
+            return ksum_reference(x, y, table, my, sigma)
     if x.device.type != "cuda":
         raise ValueError(f"ksum: unsupported device {x.device}")
+    call = profiling.span("ops.ksum")
     nb, nx, d = _frames(x)
     lead = tuple(x.shape[:-2])
     shared = y.dim() == 2 and x.dim() > 2
@@ -210,6 +213,7 @@ def ksum(x, y, table, my, sigma):
         1.0 / (sigma * sigma), stream)
     _raise_on(err, "ksum")
     launches["ksum"] += 1
+    call.end()
     out = out[:, 0] if n_splits == 1 else out.sum(1)
     return out.reshape(*lead, ncols, nx)
 

@@ -47,6 +47,7 @@ import torch
 from difficp_torch.ops import _build, ksum, pair_poly, rhs_ext
 from difficp_torch.ops.rhs_self import (DIRECT_ROWS, _check, _frames, _order_for, _raise_on,
                                         block_rows, direct_plan, fwd_reference)
+from difficp_torch.utils import profiling
 
 # kernel launches since the last reset (reset by assigning 0); the any-eta
 # instance counts apart
@@ -119,7 +120,8 @@ def rhs_cross_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta=0.0, order=None
     ``order`` (``rhs_self.row_order`` of the rows, computed when not given),
     or the ETA instance when eta != 0."""
     if qr.device.type == "cpu":
-        return rhs_cross_fwd_reference(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta)
+        with profiling.span("ops.rhs_cross_fwd_eta" if eta != 0.0 else "ops.rhs_cross_fwd"):
+            return rhs_cross_fwd_reference(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta)
     return launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, eta != 0.0, order)
 
 
@@ -129,6 +131,8 @@ def launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, use_eta, order=No
     table kernel."""
     if qr.device.type != "cuda":
         raise ValueError(f"rhs_cross_fwd: unsupported device {qr.device}")
+    kernel = "rhs_cross_fwd_eta" if use_eta else "rhs_cross_fwd"
+    call = profiling.span("ops." + kernel)
     nb, m, d = _frames(qr)
     nbc, n, dc_ = _frames(qc)
     if tuple(qr.shape[:-2]) != tuple(qc.shape[:-2]) or d != dc_:
@@ -155,9 +159,9 @@ def launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, use_eta, order=No
         dc.data_ptr(), part, ticket, cols, nb, m, n, d,
         1.0 / (sigma * sigma), int(bool(withlogdet)), float(eta), int(bool(use_eta)),
         stream)
-    name = "rhs_cross_fwd_eta" if use_eta else "rhs_cross_fwd"
-    _raise_on(err, name)
-    launches[name] += 1
+    _raise_on(err, kernel)
+    launches[kernel] += 1
+    call.end()
     return v, w, dc
 
 

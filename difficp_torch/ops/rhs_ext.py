@@ -57,6 +57,7 @@ from difficp_torch.ops import _build, rhs_self
 # _workspace: the scratch dq/dp shares with the direct forwards, named here too
 from difficp_torch.ops.rhs_self import (_check, _chunk_rows, _frames, _ones_mask,  # noqa: F401
                                         _raise_on, _scratch, _workspace, direct_plan)
+from difficp_torch.utils import profiling
 
 # kernel launches since the last reset (reset by assigning 0)
 launches = {"rhs_ext_fwd": 0, "rhs_ext_bwd_dx": 0, "rhs_ext_bwd_dqdp": 0,
@@ -345,13 +346,16 @@ def rhs_ext_fwd(x, mx, q, p, mq, sigma, withlogdet, eta=0.0):
     0.  CPU tensors take the plain version; CUDA tensors launch the forward
     kernel (its ETA instance when eta != 0)."""
     if x.device.type == "cpu":
-        return rhs_ext_fwd_reference(x, mx, q, p, mq, sigma, withlogdet, eta)
+        with profiling.span("ops.rhs_ext_fwd_eta" if eta != 0.0 else "ops.rhs_ext_fwd"):
+            return rhs_ext_fwd_reference(x, mx, q, p, mq, sigma, withlogdet, eta)
     return launch_fwd(x, mx, q, p, mq, sigma, withlogdet, eta, eta != 0.0)
 
 
 def launch_fwd(x, mx, q, p, mq, sigma, withlogdet, eta, use_eta):
     """One launch of the forward kernel on CUDA tensors: the ETA instance
     when ``use_eta`` (at any eta, 0 included), else the eta = 0 instance."""
+    kernel = "rhs_ext_fwd_eta" if use_eta else "rhs_ext_fwd"
+    call = profiling.span("ops." + kernel)
     nb, n, m, d = _check_pair("rhs_ext_fwd", x, q)
     _check("x", x, x.shape, x.device)
     _check("mx", mx, x.shape[:-1], x.device)
@@ -366,9 +370,9 @@ def launch_fwd(x, mx, q, p, mq, sigma, withlogdet, eta, use_eta):
         x.data_ptr(), mx.data_ptr(), q.data_ptr(), p.data_ptr(), mq.data_ptr(),
         vx.data_ptr(), dc.data_ptr(), part, ticket, FWD_ROWS, cols, nb, n, m, d,
         1.0 / (sigma * sigma), int(bool(withlogdet)), float(eta), int(bool(use_eta)), stream)
-    name = "rhs_ext_fwd_eta" if use_eta else "rhs_ext_fwd"
-    _raise_on(err, name)
-    launches[name] += 1
+    _raise_on(err, kernel)
+    launches[kernel] += 1
+    call.end()
     return vx, dc
 
 
@@ -390,7 +394,9 @@ def rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, withlogdet, xorder=None):
     once, the data rows in ``xorder`` (``data_order``, computed when not
     given) in blocks of ``dx_block_rows``."""
     if x.device.type == "cpu":
-        return rhs_ext_bwd_dx_reference(x, mx, gx, q, p, mq, gc, sigma, withlogdet)
+        with profiling.span("ops.rhs_ext_bwd_dx"):
+            return rhs_ext_bwd_dx_reference(x, mx, gx, q, p, mq, gc, sigma, withlogdet)
+    call = profiling.span("ops.rhs_ext_bwd_dx")
     nb, n, m, d = _check_bwd("rhs_ext_bwd_dx", x, mx, gx, q, p, mq, gc)
     xorder = data_order(x, mx, sigma) if xorder is None else rhs_self._order_for(
         x, mx, xorder, sigma)
@@ -403,6 +409,7 @@ def rhs_ext_bwd_dx(x, mx, gx, q, p, mq, gc, sigma, withlogdet, xorder=None):
         int(bool(withlogdet)), stream)
     _raise_on(err, "rhs_ext_bwd_dx")
     launches["rhs_ext_bwd_dx"] += 1
+    call.end()
     return dx
 
 
@@ -413,7 +420,9 @@ def rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, withlogdet, order=None):
     given), the data axis in chunks (``dqdp_chunk_cols``) whose partials the
     kernel sums in a fixed order."""
     if x.device.type == "cpu":
-        return rhs_ext_bwd_dqdp_reference(x, mx, gx, q, p, mq, gc, sigma, withlogdet)
+        with profiling.span("ops.rhs_ext_bwd_dqdp"):
+            return rhs_ext_bwd_dqdp_reference(x, mx, gx, q, p, mq, gc, sigma, withlogdet)
+    call = profiling.span("ops.rhs_ext_bwd_dqdp")
     nb, n, m, d = _check_bwd("rhs_ext_bwd_dqdp", x, mx, gx, q, p, mq, gc)
     order = rhs_self._order_for(q, mq, order, sigma)
     rows = rhs_self.block_rows(q)
@@ -432,6 +441,7 @@ def rhs_ext_bwd_dqdp(x, mx, gx, q, p, mq, gc, sigma, withlogdet, order=None):
         cols, 1.0 / (sigma * sigma), int(bool(withlogdet)), stream)
     _raise_on(err, "rhs_ext_bwd_dqdp")
     launches["rhs_ext_bwd_dqdp"] += 1
+    call.end()
     return dq, dp
 
 

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from difficp_torch.ops import _build
+from difficp_torch.utils import profiling
 
 # kernel launches since the last reset (reset by assigning 0); the any-eta
 # instance of the forward kernel counts apart
@@ -520,7 +521,8 @@ def rhs_self_fwd(q, p, m, sigma, withlogdet, eta=0.0, order=None):
     eta = 0 table kernel, with the rows in ``order`` (``row_order``, computed
     when not given), or the ETA instance when eta != 0."""
     if q.device.type == "cpu":
-        return rhs_self_fwd_reference(q, p, m, sigma, withlogdet, eta)
+        with profiling.span("ops.rhs_self_fwd_eta" if eta != 0.0 else "ops.rhs_self_fwd"):
+            return rhs_self_fwd_reference(q, p, m, sigma, withlogdet, eta)
     return launch_fwd(q, p, m, sigma, withlogdet, eta, eta != 0.0, order)
 
 
@@ -529,6 +531,8 @@ def launch_fwd(q, p, m, sigma, withlogdet, eta, use_eta, order=None):
     ``use_eta`` (at any eta, 0 included), else the eta = 0 table kernel."""
     if q.device.type != "cuda":
         raise ValueError(f"rhs_self_fwd: unsupported device {q.device}")
+    kernel = "rhs_self_fwd_eta" if use_eta else "rhs_self_fwd"
+    call = profiling.span("ops." + kernel)
     nb, mm, d = _frames(q)
     _check("q", q, q.shape, q.device)
     _check("p", p, q.shape, q.device)
@@ -548,9 +552,9 @@ def launch_fwd(q, p, m, sigma, withlogdet, eta, use_eta, order=None):
         0 if order is None else order.shape[-1], rows, v.data_ptr(), w.data_ptr(),
         dc.data_ptr(), part, ticket, cols, nb, mm, d, 1.0 / (sigma * sigma),
         int(bool(withlogdet)), float(eta), int(bool(use_eta)), stream)
-    name = "rhs_self_fwd_eta" if use_eta else "rhs_self_fwd"
-    _raise_on(err, name)
-    launches[name] += 1
+    _raise_on(err, kernel)
+    launches[kernel] += 1
+    call.end()
     return v, w, dc
 
 
@@ -560,9 +564,11 @@ def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet, order=None):
     version; CUDA tensors launch the backward table kernel, with the rows in
     ``order`` (computed when not given)."""
     if q.device.type == "cpu":
-        return rhs_self_bwd_reference(q, p, m, a, b, c, sigma, withlogdet)
+        with profiling.span("ops.rhs_self_bwd"):
+            return rhs_self_bwd_reference(q, p, m, a, b, c, sigma, withlogdet)
     if q.device.type != "cuda":
         raise ValueError(f"rhs_self_bwd: unsupported device {q.device}")
+    call = profiling.span("ops.rhs_self_bwd")
     nb, mm, d = _frames(q)
     for name, t in (("q", q), ("p", p), ("a", a), ("b", b)):
         _check(name, t, q.shape, q.device)
@@ -579,6 +585,7 @@ def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet, order=None):
         1.0 / (sigma * sigma), int(bool(withlogdet)), stream)
     _raise_on(err, "rhs_self_bwd")
     launches["rhs_self_bwd"] += 1
+    call.end()
     return dq, dp
 
 

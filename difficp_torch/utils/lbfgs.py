@@ -39,6 +39,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from difficp_torch.utils import profiling
 from difficp_torch.utils.integrators import tree_map
 
 
@@ -128,7 +129,8 @@ def _seed_core(lossfn: Callable, p0):
     """(l0, seed): one value+grad and the classical first-step seed
     ~ min(1, 1/||g0||) per lane; a non-finite entry falls back to 1.0."""
     k = p0.shape[0]
-    l0, _, g0 = _value_and_grad(lossfn, p0.shape, False)(p0.reshape(k, -1))
+    with profiling.span("lbfgs.entry"):
+        l0, _, g0 = _value_and_grad(lossfn, p0.shape, False)(p0.reshape(k, -1))
     n = float(g0.shape[1])
     g0_norm = torch.sqrt(_dot(g0, g0) / max(n, 1.0)) * torch.sqrt(
         torch.tensor(n, dtype=l0.dtype, device=l0.device))
@@ -164,7 +166,9 @@ def _linesearch(vg, max_steps, errthresh, x, fx, gx, d, a1,
     seen (a_lo = 0 initially), so the budget-exhausted fallback accepts lo.
     Trials with non-finite or aberrant loss fail Armijo and shrink the
     bracket; a divergent trial met while bracketing backs off by 1/64.
+    A trial's span ends at the next pass's read of the loop condition.
     """
+    search = profiling.span("lbfgs.linesearch")
     dg0 = dot(gx, d)
     descent = torch.isfinite(dg0) & (dg0 < 0)
     kk = fx.shape[0]
@@ -180,10 +184,15 @@ def _linesearch(vg, max_steps, errthresh, x, fx, gx, d, a1,
         acc_a=zero, acc_f=fx, acc_g=gx,
         bx=best_x, bf=best_f, bg=best_g, baux=best_aux,
     )
+    trials, trial = 0, profiling.OFF
     while True:
         pred = ~c["done"] & (c["k"] < max_steps)
-        if not bool(pred.any()):
+        more = bool(pred.any())
+        trial.end()
+        if not more:
             break
+        trial = profiling.span("lbfgs.eval")
+        trials += 1
         a = c["a"]
         in_zoom = c["in_zoom"]
         a_lo, f_lo, dg_lo, g_lo = c["a_lo"], c["f_lo"], c["dg_lo"], c["g_lo"]
@@ -253,6 +262,7 @@ def _linesearch(vg, max_steps, errthresh, x, fx, gx, d, a1,
     acc_a = torch.where(done, c["acc_a"], c["a_lo"])
     acc_f = torch.where(done, c["acc_f"], c["f_lo"])
     acc_g = _sel(done, c["acc_g"], c["g_lo"])
+    search.end(trials=trials)
     return (acc_a, acc_f, acc_g, c["was_acc"], c["bx"], c["bf"], c["bg"],
             c["baux"], c["k"])
 
@@ -321,6 +331,7 @@ def lbfgs_optimize(
         raise ValueError("value0 and grad0 must be given together")
     if value0 is not None and has_aux and aux0 is None:
         raise ValueError("aux0 is required with value0/grad0 when has_aux")
+    call = profiling.span("lbfgs.optimize")
     shape = p0.shape
     kk = shape[0]
     x0 = p0.detach().reshape(kk, -1)
@@ -343,11 +354,14 @@ def lbfgs_optimize(
     vg = _value_and_grad(lossfn, shape, has_aux)
     errthresh = torch.tensor(errthresh, dtype=x0.dtype, device=dev)
 
+    entry = profiling.OFF
     if value0 is not None:
         f0 = torch.as_tensor(value0, device=dev).detach()
         g0 = grad0.detach().reshape(kk, n)
         baux0 = aux0 if has_aux else ()
     else:
+        # ends at the first read that waits on it, the outer loop's condition
+        entry = profiling.span("lbfgs.entry")
         f0, baux0, g0 = vg(x0)
     fd = f0.dtype
     g0c = torch.where(torch.isfinite(g0), g0, torch.zeros_like(g0))
@@ -447,7 +461,9 @@ def lbfgs_optimize(
     )
     while True:
         active = outer_cond(c)
-        if not bool(active.any()):
+        more = bool(active.any())
+        entry.end()
+        if not more:
             break
         prev = c["x"]
         b = dict(c, act=active)
@@ -479,6 +495,7 @@ def lbfgs_optimize(
     cold = ~warm_evidence & ~stall_v
     alpha = torch.where(~c["ever_step"] & (i > 0) & cold,
                         torch.clamp_min(prev_seed * probe_floor, 1e-20), alpha)
+    call.end()
     return LBFGSResult(
         params=c["bx"].reshape(shape), loss=c["bf"], n_steps=i, change=change,
         alpha=alpha, alpha_qn=c["aqn"], aux=c["baux"] if has_aux else None,

@@ -1186,3 +1186,42 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     back.GMM_opt(max_iterations=5)
     back.Reg_opt(nmax=1, inner=5, ls_steps=8)
     assert back.fe_increase_events == 0 and back.FE <= psr.FE
+
+
+def test_spans_share_the_trace_clock(cuda):
+    """Under a profiler of the card's activity alone (as perfbench's traced
+    run), one loss+grad at 8,192 points gives one ``ops.rhs_self_fwd`` /
+    ``ops.rhs_self_bwd`` span per launch of its kernel in the trace, and
+    the i-th kernel starts after the i-th span has started: the spans'
+    clock is the trace's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from difficp_torch.utils import profiling
+
+    q0, p0, m, *_ = _spiral_inputs(1, 8192, 2, seed=5, device=cuda)
+    cfg = lddmm.make_config(sigma=SIG, lambd=200.0, version="hybrid", nt=5, scheme="Euler")
+    lossfn = lddmm._make_lossfn_aux(cfg, lddmm.quad_dataloss(q0 + 0.02), q0, None, m, None)
+
+    def loss_grad():
+        p = (0.1 * p0).requires_grad_(True)
+        with torch.enable_grad():
+            f, _ = lossfn(p)
+            return torch.autograd.grad(f.sum(), p)[0]
+
+    loss_grad()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    loss_grad()
+    torch.cuda.synchronize()
+    prof.stop()
+    events = sorted(((e.name(), e.start_ns()) for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA), key=lambda e: e[1])
+    spans = profiling.spans()
+    for key, sym in (("rhs_self_fwd", "rhs_table_kernel<2, false"),
+                     ("rhs_self_bwd", "rhs_table_kernel<2, true")):
+        starts = [s.start_ns for s in spans if s.name == f"ops.{key}"]
+        kernels = [t for name, t in events if sym in name]
+        assert len(starts) == len(kernels) == (cfg.nt + 1 if key == "rhs_self_fwd" else cfg.nt)
+        assert all(k > s for s, k in zip(starts, kernels)), (key, starts, kernels)
