@@ -62,8 +62,13 @@
 // (MUFU, 4.1875e12/s), 3 x 2 x 8 NT tensor-core FLOP (the table padded to NT
 // n-tiles of 8 columns: 16 columns forward, 48 backward at D = 2; three TF32
 // products for float32 accuracy; 495 TFLOP/s dense) and 3 D + 2 FP32
-// operations for the distance, the exponent's scale and the split of k.  At
-// D = 2 the forward is bound by the MUFU, the backward by the tensor cores.
+// operations for the distance, the exponent's scale and the split of k.  By
+// those rates the forward at D = 2 is bound by the MUFU, the backward by the
+// tensor cores; measured, neither is (PERF.md section 5): the exponentials
+// and splits are issued as ordinary instructions, the products as a chain of
+// small wgmmas (m64n16k8, m64n48k8) that run well below the tensor cores'
+// rate, and the two do not overlap, not even in separate warpgroups: a
+// block's time follows the instructions its warps issue plus its wgmmas.
 // The function's own least work (ops/rhs_self.py fwd_ops_per_unordered_pair,
 // bwd_ops_per_unordered_pair: 15 D + 2 and 34 D + 3 FP32 operations and one
 // exponential per unordered pair) is the bound the kernel table states.
@@ -72,7 +77,7 @@
 // wgmma.cuh):
 // - The product runs on the tensor cores: wgmma m64nNk8 TF32, A the tile of
 //   exponentials (64 rows by 8 columns, computed in registers in its fragment
-//   layout, double-buffered), B the table from shared memory; 3xTF32, k_lo
+//   layout, in two buffers), B the table from shared memory; 3xTF32, k_lo
 //   T_hi + k_hi T_lo + k_hi T_hi; each tile of J columns summed in its own
 //   accumulators and then added to the running totals in float32 (the tensor
 //   cores truncate as they accumulate).  k is formed from differences, never
@@ -89,7 +94,24 @@
 //   per column against 64 G exponentials per column (G consumer warpgroups).
 //   Each core matrix is followed by one unused 16-byte word (LBO 144, SBO 288
 //   bytes), so that a warp writing one entry of 32 consecutive columns hits
-//   32 different banks.
+//   32 different banks.  A producer warp takes one branch for its group of
+//   entries and then builds them with none between, so that their products
+//   and splits interleave (the backward's 45 entries a column were a chain
+//   each, and set the pace).
+// - The consumers' schedule: each k-step's fragment is computed right after
+//   the previous k-step's products are issued, while they run, and the next
+//   tile's first fragment before the tile's drain; the tiles go in runs of
+//   ST, one a stage, so that each tile's stage, and with it the address of
+//   its column records and its descriptors (a low word and a constant high
+//   one, smem_desc_lo / smem_desc_of), is a constant of the code and a k-step
+//   issues little besides its pairs' arithmetic and its three wgmmas.  The
+//   products, their order and the sums are those of a loop that computes a
+//   tile's fragments in turn, so the outputs are its bits; that loop took
+//   8% longer at four warpgroups a block and 1-3% at one (the grid
+//   support's blocks of 64 rows, two blocks an SM).  Taking turns between
+//   two sets of warpgroups on named barriers (a ping-pong) was measured
+//   slower: with the phases not overlapping across warpgroups there is
+//   nothing for it to hide.
 // - The epilogue needs a row's whole set of columns, which the wgmma
 //   fragment spreads over a quad of threads: the sums are staged through
 //   shared memory, one row a thread, and the row-side values are read there
@@ -641,15 +663,22 @@ rhs_table_kernel(const TabArgs args) {
         reinterpret_cast<float4*>(sm)[jj] = make_float4(cur[0], cur[1], D == 3 ? cur[2] : 0.f, 0.f);
       float* hi = reinterpret_cast<float*>(sm + J) + col_off;
       float* lo = hi + 4 * S::kTabWords;
-      static_for<0, S::kC>([&](auto ci) {
-        constexpr int cc = decltype(ci)::value;
-        if (cc % S::kProdGroups != grp) return;
-        constexpr Term tm = T::term(cc);
-        const float v = mj * base[tm.f0] * base[tm.f1] * base[tm.f2];
-        const uint32_t h = tf32_rna(v);
-        constexpr int o = ((cc >> 3) * 2 * kCoreWords + (cc & 7)) * 4;
-        hi[o] = __uint_as_float(h);
-        lo[o] = __uint_as_float(tf32_rna(v - __uint_as_float(h)));
+      // one branch a warp, then the group's entries with no branch between
+      // them, so that their products and splits interleave
+      static_for<0, S::kProdGroups>([&](auto gi) {
+        constexpr int gg = decltype(gi)::value;
+        if (grp != gg) return;
+        static_for<0, S::kC>([&](auto ci) {
+          constexpr int cc = decltype(ci)::value;
+          if constexpr (cc % S::kProdGroups == gg) {
+            constexpr Term tm = T::term(cc);
+            const float v = mj * base[tm.f0] * base[tm.f1] * base[tm.f2];
+            const uint32_t h = tf32_rna(v);
+            constexpr int o = ((cc >> 3) * 2 * kCoreWords + (cc & 7)) * 4;
+            hi[o] = __uint_as_float(h);
+            lo[o] = __uint_as_float(tf32_rna(v - __uint_as_float(h)));
+          }
+        });
       });
       // written by the generic proxy, read by wgmma through the async proxy
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -680,55 +709,67 @@ rhs_table_kernel(const TabArgs args) {
     acc[i] = 0.f;
     part[i] = 0.f;
   }
-  // A fragments, {A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]} of
-  // the k-step's 16 x 8 share, double-buffered
+  // A fragments, {A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]} of a
+  // k-step's 16 x 8 share, double-buffered: each is computed while the
+  // products of the k-step before it run, the next tile's first one before
+  // the tile's drain; the tiles go in runs of ST, so that each one's stage,
+  // and with it the addresses of its column records and its descriptors, is
+  // a constant of the code.
   uint32_t ahi[2][4], alo[2][4];
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int st = tile % ST;
-    mbar_wait(&full[st], (tile / ST) & 1);
-    const uint4* sm = smem + st * S::kStageWords;
-    const float4* ys = reinterpret_cast<const float4*>(sm);
-    const uint32_t bhi = smem_addr(sm + J);
-    const uint32_t blo = bhi + S::kTabWords * 16;
-
+  auto fragment = [&](const float4* ys, int ks, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+    const float4 ya = ys[8 * ks + t], yb = ys[8 * ks + t + 4];
+    const float yv[2][3] = {{ya.x, ya.y, ya.z}, {yb.x, yb.y, yb.z}};
 #pragma unroll
-    for (int ks = 0; ks < S::kSteps; ++ks) {
-      const int buf = ks & 1;
-      if (ks >= 2) {
-        // the products of k-step ks - 2 read this A buffer
+    for (int v = 0; v < 4; ++v) {
+      const int h = v & 1, col = v >> 1;
+      float r2 = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float dd = xr[h][d] - yv[col][d];
+        r2 = fmaf(dd, dd, r2);
+      }
+      const float k = ex2(c2 * r2);
+      hi[v] = tf32_rna(k);
+      lo[v] = __float_as_uint(k - __uint_as_float(hi[v]));
+    }
+  };
+  auto records = [&](int st) {
+    return reinterpret_cast<const float4*>(smem + st * S::kStageWords);
+  };
+  mbar_wait(&full[0], 0);
+  fragment(records(0), 0, ahi[0], alo[0]);
+  for (int tile0 = 0; tile0 < n_tiles; tile0 += ST) static_for<0, ST>([&](auto sc) {
+    constexpr int st = decltype(sc)::value, stn = (st + 1) % ST;
+    const int tile = tile0 + st;
+    if (tile >= n_tiles) return;
+    const bool more = tile + 1 < n_tiles;
+    // k-step 0's descriptors' low words; k-step ks's are KSW 16-byte words on
+    const uint32_t bhi = smem_addr(smem + st * S::kStageWords + J);
+    const uint32_t dhi = smem_desc_lo(bhi, kCoreWords * 16);
+    const uint32_t dlo = smem_desc_lo(bhi + S::kTabWords * 16, kCoreWords * 16);
+    static_for<0, S::kSteps>([&](auto kc) {
+      constexpr int ks = decltype(kc)::value, b = ks & 1;
+      const uint64_t h = smem_desc_of(dhi + ks * KSW, 2 * kCoreWords * 16);
+      const uint64_t l = smem_desc_of(dlo + ks * KSW, 2 * kCoreWords * 16);
+      wgmma_fence();
+      Wgmma<N8>::run(part, alo[b], h, ks > 0);  // k_lo T_hi (a fresh sum at ks = 0)
+      Wgmma<N8>::run(part, ahi[b], l, 1);       // k_hi T_lo
+      Wgmma<N8>::run(part, ahi[b], h, 1);       // k_hi T_hi
+      wgmma_commit();
+      // the next k-step's fragment (the next tile's first, after the last)
+      // into the buffer the products of the k-step before this one read
+      if (ks + 1 < S::kSteps || more) {
+        if constexpr (ks + 1 == S::kSteps) mbar_wait(&full[stn], ((tile + 1) / ST) & 1);
         wgmma_wait<1>();
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
-          pin(ahi[buf][v]);
-          pin(alo[buf][v]);
+          pin(ahi[1 - b][v]);
+          pin(alo[1 - b][v]);
         }
+        fragment(records(ks + 1 < S::kSteps ? st : stn), (ks + 1) % S::kSteps, ahi[1 - b],
+                 alo[1 - b]);
       }
-      const float4 ya = ys[8 * ks + t], yb = ys[8 * ks + t + 4];
-      const float yv[2][3] = {{ya.x, ya.y, ya.z}, {yb.x, yb.y, yb.z}};
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int h = v & 1, col = v >> 1;
-        float r2 = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const float dd = xr[h][d] - yv[col][d];
-          r2 = fmaf(dd, dd, r2);
-        }
-        const float k = ex2(c2 * r2);
-        ahi[buf][v] = tf32_rna(k);
-        alo[buf][v] = __float_as_uint(k - __uint_as_float(ahi[buf][v]));
-      }
-      const uint64_t dhi =
-          smem_desc(bhi + ks * KSW * 16, kCoreWords * 16, 2 * kCoreWords * 16);
-      const uint64_t dlo =
-          smem_desc(blo + ks * KSW * 16, kCoreWords * 16, 2 * kCoreWords * 16);
-      wgmma_fence();
-      Wgmma<N8>::run(part, alo[buf], dhi, ks > 0);  // k_lo T_hi (a fresh sum at ks = 0)
-      Wgmma<N8>::run(part, ahi[buf], dlo, 1);       // k_hi T_lo
-      Wgmma<N8>::run(part, ahi[buf], dhi, 1);       // k_hi T_hi
-      wgmma_commit();
-    }
+    });
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < ND; ++i) pin(part[i]);
@@ -739,13 +780,13 @@ rhs_table_kernel(const TabArgs args) {
         pin(ahi[b][v]);
         pin(alo[b][v]);
       }
-    // this warp is done with the stage: its reads of the column records and
-    // its share of the products have completed
+    // this warp is done with the stage: its reads of the column records
+    // and its share of the products have completed
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[st]);
 #pragma unroll
     for (int i = 0; i < ND; ++i) acc[i] += part[i];
-  }
+  });
 
   // stage the sums, one row of kN columns a row: accumulator i holds row
   // g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2

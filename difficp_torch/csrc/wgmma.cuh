@@ -74,6 +74,18 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo = 128,
          ((uint64_t)(sbo >> 4) << 32);
 }
 
+// The same descriptor from its low word, the address field and LBO
+// (smem_desc_lo), and SBO: a loop over matrices w 16-byte words apart adds
+// w to one word (the address field, bits 0-13, does not carry out of itself
+// for a shared address under 2^18 bytes).
+__device__ __forceinline__ uint32_t smem_desc_lo(uint32_t addr, uint32_t lbo) {
+  return ((addr & 0x3ffff) >> 4) | ((lbo >> 4) << 16);
+}
+
+__device__ __forceinline__ uint64_t smem_desc_of(uint32_t lo, uint32_t sbo) {
+  return (uint64_t)lo | ((uint64_t)(sbo >> 4) << 32);
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");

@@ -161,7 +161,7 @@ def launch_fwd(qr, pr, mr, qc, pc, mc, sigma, withlogdet, eta, use_eta, order=No
         stream)
     _raise_on(err, kernel)
     launches[kernel] += 1
-    call.end()
+    call.end(rows=rows)
     return v, w, dc
 
 

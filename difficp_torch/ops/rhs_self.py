@@ -554,7 +554,7 @@ def launch_fwd(q, p, m, sigma, withlogdet, eta, use_eta, order=None):
         int(bool(withlogdet)), float(eta), int(bool(use_eta)), stream)
     _raise_on(err, kernel)
     launches[kernel] += 1
-    call.end()
+    call.end(rows=rows)
     return v, w, dc
 
 
@@ -575,17 +575,18 @@ def rhs_self_bwd(q, p, m, a, b, c, sigma, withlogdet, order=None):
     _check("m", m, q.shape[:-1], q.device)
     _check("c", c, q.shape[:-2], q.device)
     order = _order_for(q, m, order, sigma)
+    rows = block_rows(q, 128 if d == 3 else 256)
     dq = torch.empty_like(q)
     dp = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().difficp_rhs_self_bwd(
         q.data_ptr(), p.data_ptr(), m.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), order.data_ptr(), order.shape[-1], block_rows(q, 128 if d == 3 else 256),
+        c.data_ptr(), order.data_ptr(), order.shape[-1], rows,
         dq.data_ptr(), dp.data_ptr(), nb, mm, d,
         1.0 / (sigma * sigma), int(bool(withlogdet)), stream)
     _raise_on(err, "rhs_self_bwd")
     launches["rhs_self_bwd"] += 1
-    call.end()
+    call.end(rows=rows)
     return dq, dp
 
 

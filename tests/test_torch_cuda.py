@@ -109,17 +109,27 @@ def _spiral_inputs(b, m, d, seed, device, masked=True):
             for x in (q, p, mask, a, gb, c)]
 
 
-@pytest.mark.parametrize("m", [37, 3001, 40001])
-@pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("d", [2, 3])
-@pytest.mark.parametrize("withlogdet", [True, False])
-def test_table_kernels_match_plain(cuda, m, masked, d, withlogdet):
+# (m, masked, d, withlogdet, rows): rows None is the launcher's own block
+# (block_rows), else every block size it takes; and the benchmark cell's
+# 131,072 points
+TABLE_CASES = [(m, masked, d, withlogdet, rows)
+               for m in (37, 3001, 40001) for masked in (True, False) for d in (2, 3)
+               for withlogdet in (True, False) for rows in (None, 64, 128, 256)]
+TABLE_CASES.append((131072, False, 2, True, None))
+
+
+@pytest.mark.parametrize("m,masked,d,withlogdet,rows", TABLE_CASES)
+def test_table_kernels_match_plain(cuda, monkeypatch, m, masked, d, withlogdet, rows):
     """The eta = 0 table kernels (forward and backward) against the plain
     versions in float64 on a spiral cloud, masked and unmasked: M = 37 (less
     than one warpgroup's 64 rows), 3,001 (blocks of 64 rows, the grid too
     small to take more) and 40,001 (blocks of 256 rows); none a multiple of
-    the block's rows or of the 32-column tile.  TOL_FWD and TOL_BWD relative
-    to the largest output."""
+    the block's rows or of the 32-column tile.  Each also in blocks of 64,
+    128 and 256 rows (one, two and four consumer warpgroups; at most 128 for
+    the backward at d = 3); and the benchmark cell's 131,072 points.  TOL_FWD
+    and TOL_BWD relative to the largest output."""
+    if rows is not None:
+        monkeypatch.setattr(RS, "block_rows", lambda q, max_rows=256: min(rows, max_rows))
     q, p, mk, a, b, c = _spiral_inputs(1, m, d, seed=m + d, device=cuda, masked=masked)
     v, w, dc = RS.rhs_self_fwd(q, p, mk, SIG, withlogdet)
     dq, dp = RS.rhs_self_bwd(q, p, mk, a, b, c, SIG, withlogdet)
@@ -1225,3 +1235,72 @@ def test_spans_share_the_trace_clock(cuda):
         kernels = [t for name, t in events if sym in name]
         assert len(starts) == len(kernels) == (cfg.nt + 1 if key == "rhs_self_fwd" else cfg.nt)
         assert all(k > s for s, k in zip(starts, kernels)), (key, starts, kernels)
+
+
+@pytest.mark.parametrize("m", [3001, 40001])
+def test_table_kernel_spans_carry_their_block_rows(cuda, m):
+    """Under a profiler, the ``ops.rhs_self_fwd``, ``ops.rhs_self_bwd`` and
+    ``ops.rhs_cross_fwd`` spans carry the rows a block of their launch took
+    (``rows``): 64 at 3,001 points (one consumer warpgroup a block), 256 at
+    40,001 (four)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from difficp_torch.ops import rhs_cross as RC
+    from difficp_torch.utils import profiling
+
+    q, p, mk, a, b, c = _spiral_inputs(1, m, 2, seed=m, device=cuda)
+    order = RS.row_order(q, mk, SIG)
+    with profile(activities=[ProfilerActivity.CPU]):
+        RS.rhs_self_fwd(q, p, mk, SIG, True, order=order)
+        RS.rhs_self_bwd(q, p, mk, a, b, c, SIG, True, order)
+        RC.rhs_cross_fwd(q, p, mk, q, p, mk, SIG, True, order=order)
+        torch.cuda.synchronize()
+    got = {s.name: s.attrs.get("rows") for s in profiling.spans() if s.name.startswith("ops.")}
+    rows = 64 if m == 3001 else 256
+    assert RS.block_rows(q) == rows
+    assert got == {"ops.rhs_self_fwd": rows, "ops.rhs_self_bwd": rows,
+                   "ops.rhs_cross_fwd": rows}
+
+
+def ptxas_instances(log, name):
+    """{mangled name: (spill-store bytes, [warning lines naming it])} of each
+    entry function of ptxas's -v report ``log`` whose name contains ``name``."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+            if cur:
+                out[cur] = [None, []]
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if cur and m:
+            out[cur][0] = int(m.group(1))
+    for ln in log.splitlines():
+        for fn in out:
+            if fn in ln and "Compiling entry function" not in ln and "Function properties" not in ln:
+                out[fn][1].append(ln.strip())
+    return out
+
+
+def test_table_kernels_build_without_serialised_wgmma_or_spills(cuda):
+    """ptxas's report of the build (``ops._build.build_log``, -Xptxas -v):
+    every instance of ``rhs_table_kernel`` (22: d = 2, 3, forward and
+    backward, 1, 2 or 4 consumer warpgroups, tiles of 32 and 64 columns) has
+    no spill stores and no warning that its wgmmas are serialised (C7510 to
+    C7519)."""
+    import re
+
+    from difficp_torch.ops import _build
+
+    if not _build.build_log:
+        _build.build(force=True)
+    inst = ptxas_instances(_build.build_log, "rhs_table_kernel")
+    assert len(inst) == 22, sorted(inst)
+    for fn, (spills, notes) in inst.items():
+        assert spills == 0, (fn, spills)
+        bad = [n for n in notes if re.search(r"C751\d", n) or "serializ" in n]
+        assert not bad, bad
+

@@ -20,11 +20,13 @@ entry points (the wrappers of a commit before the row order take none).
 
 ``time``: at each shape both kernels run on the same inputs; the line gives the largest
 difference of their outputs relative to the largest output of the earlier
-one, then CUDA-event medians of 15 launches each in the order earlier,
-current, current, earlier.  The current kernels run with the rows' order
-computed once beforehand, as the main paths do (once per optimisation); its
-time is printed on a line of its own.  Shapes: the dense main path's
-65,536^2 forward and backward (d = 2, sigma = 0.1, logdet on), the ring's
+one and whether the outputs are equal bit for bit (``bits_equal``), then
+CUDA-event medians of 15 launches each in the order earlier, current,
+current, earlier.  Both kernels run with the rows' order computed once
+beforehand, as the main paths do (once per optimisation; an earlier wrapper
+that takes no order computes its own); its time is printed on a line of its
+own.  Shapes: the dense main path's 65,536^2 and the benchmark cell's
+131,072^2 forward and backward (d = 2, sigma = 0.1, logdet on), the ring's
 65,536^2 cross forward (the whole set as rows and columns), the grid main
 path's support (10 frames of the grid support at sigma = 0.05, logdet off)
 forward and backward, and 16,384^2 at d = 3 with holes.  Writes
@@ -78,6 +80,7 @@ def shapes(cs, rs):
     from difficp_torch.ops import rhs_cross as rc
 
     q, p, m, a, b, c = cs.make_inputs(65536, 2, False, seed=1)
+    Q, P, M, A, B, C = cs.make_inputs(131072, 2, False, seed=2)
     x, qg, qs, ps, _ = cs.grid_eta_inputs()
     del x, qg
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -87,29 +90,40 @@ def shapes(cs, rs):
     q3, p3, m3, a3, b3, c3 = cs.make_inputs(16384, 3, True, seed=16387)
     sig, gsig = cs.SIGMA, cs.GRID_SIGMA
     o1, os_, o3 = rs.row_order(q, m, sig), rs.row_order(qs, ms, gsig), rs.row_order(q3, m3, sig)
-    return [
-        ("dense forward", (q, p, m, sig, True),
-         lambda: rs.rhs_self_fwd(q, p, m, sig, True, order=o1),
-         lambda old: old[0].rhs_self_fwd(q, p, m, sig, True)),
-        ("dense backward", (q, p, m, a, b, c, sig, True),
-         lambda: rs.rhs_self_bwd(q, p, m, a, b, c, sig, True, o1),
-         lambda old: old[0].rhs_self_bwd(q, p, m, a, b, c, sig, True)),
-        ("ring cross forward", (q, p, m, q, p, m, sig, True),
-         lambda: rc.rhs_cross_fwd(q, p, m, q, p, m, sig, True, order=o1),
-         lambda old: old[1].rhs_cross_fwd(q, p, m, q, p, m, sig, True)),
-        ("grid forward", (qs, ps, ms, gsig, False),
-         lambda: rs.rhs_self_fwd(qs, ps, ms, gsig, False, order=os_),
-         lambda old: old[0].rhs_self_fwd(qs, ps, ms, gsig, False)),
-        ("grid backward", (qs, ps, ms, gv, gw, zero, gsig, False),
-         lambda: rs.rhs_self_bwd(qs, ps, ms, gv, gw, zero, gsig, False, os_),
-         lambda old: old[0].rhs_self_bwd(qs, ps, ms, gv, gw, zero, gsig, False)),
-        ("d = 3 forward", (q3, p3, m3, sig, True),
-         lambda: rs.rhs_self_fwd(q3, p3, m3, sig, True, order=o3),
-         lambda old: old[0].rhs_self_fwd(q3, p3, m3, sig, True)),
-        ("d = 3 backward", (q3, p3, m3, a3, b3, c3, sig, True),
-         lambda: rs.rhs_self_bwd(q3, p3, m3, a3, b3, c3, sig, True, o3),
-         lambda old: old[0].rhs_self_bwd(q3, p3, m3, a3, b3, c3, sig, True)),
-    ], (q, m)
+    O = rs.row_order(Q, M, sig)
+
+    def both(fn, *args, order):
+        """The current call and the earlier one, both on ``order`` (the
+        earlier computes its own where its wrapper takes none)."""
+        def old_call(old, args=args):
+            f = fn(old)
+            try:
+                return f(*args, order=order)
+            except TypeError:
+                return f(*args)
+        return (lambda: fn(None)(*args, order=order)), old_call
+
+    def fwd(mods):
+        return rs.rhs_self_fwd if mods is None else mods[0].rhs_self_fwd
+
+    def bwd(mods):
+        return rs.rhs_self_bwd if mods is None else mods[0].rhs_self_bwd
+
+    def cross(mods):
+        return rc.rhs_cross_fwd if mods is None else mods[1].rhs_cross_fwd
+
+    calls = [
+        ("dense forward", fwd, (q, p, m, sig, True), o1),
+        ("dense backward", bwd, (q, p, m, a, b, c, sig, True), o1),
+        ("dense forward 131,072", fwd, (Q, P, M, sig, True), O),
+        ("dense backward 131,072", bwd, (Q, P, M, A, B, C, sig, True), O),
+        ("ring cross forward", cross, (q, p, m, q, p, m, sig, True), o1),
+        ("grid forward", fwd, (qs, ps, ms, gsig, False), os_),
+        ("grid backward", bwd, (qs, ps, ms, gv, gw, zero, gsig, False), os_),
+        ("d = 3 forward", fwd, (q3, p3, m3, sig, True), o3),
+        ("d = 3 backward", bwd, (q3, p3, m3, a3, b3, c3, sig, True), o3),
+    ]
+    return [(name, args, *both(fn, *args, order=order)) for name, fn, args, order in calls], (q, m)
 
 
 def time_calls(cs, rs, old):
@@ -123,6 +137,7 @@ def time_calls(cs, rs, old):
         a, b = new_fn(), old_fn()
         torch.cuda.synchronize()
         diff = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
+        same = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
         for fn in (old_fn, new_fn):
             for _ in range(3):
                 fn()
@@ -134,7 +149,7 @@ def time_calls(cs, rs, old):
         rec = dict(call=name, frames=args[0].shape[0], M=args[0].shape[1],
                    d=args[0].shape[2], old_ms=[t_old1, t_old2], new_ms=[t_new1, t_new2],
                    speedup=(t_old1 + t_old2) / (t_new1 + t_new2), rel_diff_new_vs_old=diff,
-                   device=smi)
+                   bits_equal=same, device=smi)
         recs.append(rec)
         print(json.dumps(rec), flush=True)
         del a, b
