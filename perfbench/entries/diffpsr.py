@@ -4,8 +4,9 @@ at a time by the calls of the source's loop body (``GMM_opt``, then the
 configuration's ``Reg_opt`` calls), with the source's stop.
 
 Configuration keys read here: ``lddmm`` (sigma, lambd, version, nt,
-scheme), ``support`` (scheme: "dense", the data themselves; the reference
-has no grid support and no coverage pass to compare), ``gmm`` (init_from
+scheme), ``support`` (scheme: "dense", the data themselves, or "grid" with
+its ``rho``, set by ``set_support_scheme`` as ``api/icp_atlas.py`` sets it;
+the reference has no decim support), ``gmm`` (init_from
 "frame0" or "target", C, sigma or null for gmm.create's rule, the
 optimize_* flags, use_outliers) and ``loop`` (max_iterations,
 convergence_tolerance or null for none, em_in_first_iteration, em:
@@ -30,14 +31,16 @@ from perfbench.harness import traffic
 def problem(config: dict, mix: dict, seed: int) -> dict:
     """The cell's sets, drawn once on the host, and the extent of the data
     the comparisons are scaled by (the same in every order)."""
-    if config["support"]["scheme"] != "dense":
+    if config["support"]["scheme"] not in ("dense", "grid"):
         raise ValueError(f"no reference for support {config['support']['scheme']!r}")
     g = config["gmm"]
     drawn = traffic.draw(mix, g["init_from"], int(g["C"]))
     x0 = np.stack(drawn[0])
     lo, hi = x0.reshape(-1, x0.shape[-1]).min(0), x0.reshape(-1, x0.shape[-1]).max(0)
+    # lossgrads: the evaluations that the Reg_opt calls of ``iteration`` made
+    # with external points (grid support), where no self-RHS kernel counts them
     return {"config": config, "drawn": drawn, "seed": int(seed),
-            "extent": float((hi - lo).max())}
+            "extent": float((hi - lo).max()), "lossgrads": 0}
 
 
 def inputs(prob: dict, cohort: int) -> dict:
@@ -68,20 +71,32 @@ class Registration:
         psr = DiffPSR(frames if len(frames) > 1 else frames[0], state, gcfg, lcfg,
                       device=device)
         psr.printstuff = False
+        if cfg["support"]["scheme"] == "grid":
+            psr.set_support_scheme("grid", rho=float(cfg["support"]["rho"]))
         self.psr, self.cfg, self.it, self.last_fe, self.done = psr, cfg, 0, None, False
+        self.prob = prob
 
 
-def eval_count(config: dict) -> float:
-    """Loss+grad evaluations so far: one self-RHS backward launch per Euler
-    step of each (every configuration of this entry runs one a step)."""
-    return rhs_self.launches["rhs_self_bwd"] / int(config["lddmm"]["nt"])
+def eval_count(prob: dict) -> float:
+    """Loss+grad evaluations so far.  Dense support: one self-RHS backward
+    launch per Euler step of each.  Grid support: the L-BFGS's own count
+    (``DiffPSR.last_reg_evals``), taken after each Reg_opt call in the
+    window by ``iteration``."""
+    config = prob["config"]
+    if config["support"]["scheme"] == "dense":
+        return rhs_self.launches["rhs_self_bwd"] / int(config["lddmm"]["nt"])
+    return float(prob["lossgrads"])
 
 
 def shapes(reg: Registration) -> dict:
-    """The shapes the RHS kernels run at in this cell, for the rooflines."""
-    k, m, d = reg.psr.q0.shape
-    return {"self": {"frames": k, "points": m, "d": d,
-                     "valid": [float(v) for v in reg.psr.qmask.sum(-1).cpu()]}}
+    """The shapes the RHS run at in this cell, for the rooflines: the self
+    RHS on the support, or the RHS with external points."""
+    psr = reg.psr
+    k, m, d = psr.q0.shape
+    if psr.support_scheme is None:
+        return {"self": {"frames": k, "points": m, "d": d,
+                         "valid": [float(v) for v in psr.qmask.sum(-1).cpu()]}}
+    return {"ext": {"frames": k, "support": m, "points": psr.x0.shape[1], "d": d}}
 
 
 def _host(t):
@@ -102,20 +117,35 @@ def iteration(reg: Registration, spans, snap=None):
     psr, loop = reg.psr, reg.cfg["loop"]
     em = reg.it != 0 or loop["em_in_first_iteration"]
     events = psr.fe_increase_events
+    ext = psr.support_scheme is not None
+    # the frames' points without the program's padding (dense support: the
+    # support's too)
+    n = reg.inputs["x0"].shape[1]
+    data = lambda t: _host(t)[:, :n]  # noqa: E731
+    supp = _host if ext else data
     if snap is not None:
         snap.update(inputs=reg.inputs, it=reg.it, em=em, gmm_before=_gmm(psr),
-                    x1_before=_host(psr.x1), a0_before=_host(psr.a0))
+                    x1_before=data(psr.x1), a0_before=supp(psr.a0))
     if em:
         with spans("GMM_opt"):
             psr.GMM_opt(max_iterations=loop["em"]["max_iterations"], tol=loop["em"]["tol"])
     if snap is not None:
         snap.update(fe_mid=psr.FE, gmm_after=_gmm(psr))
+    # the lockstep's evaluations in each call: the entry's, and the most
+    # line-search trials a frame made (every trial evaluates all frames)
+    evals = []
     with spans("Reg_opt"):
         for call in loop["reg_calls"]:
+            entry = not call.get("carry_value") or psr._reg_vg is None
             psr.Reg_opt(**call)
+            if ext:
+                evals.append(int(entry) + psr.last_reg_evals.max())
+    reg.prob["lossgrads"] += int(sum(evals))
     if snap is not None:
-        snap.update(fe=psr.FE, x1_after=_host(psr.x1), a0_after=_host(psr.a0),
-                    grad=_host(psr._reg_vg[0]), q0=_host(psr.q0))
+        snap.update(fe=psr.FE, x1_after=data(psr.x1), a0_after=supp(psr.a0),
+                    grad=supp(psr._reg_vg[0]), q0=supp(psr.q0))
+        if ext:
+            snap["uncovered"] = _host(psr.last_reg_stats["uncovered"])
     tol = loop["convergence_tolerance"]
     if tol is not None and reg.it > 1 and abs(psr.FE - reg.last_fe) < tol * abs(reg.last_fe):
         reg.done = True

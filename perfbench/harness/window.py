@@ -95,19 +95,19 @@ def window(entry, prob, reg, device, seconds: float, seed: int, trace: bool):
         tr.start()
     n_iter = failed = n_reg = 0
     ends = []
-    ev0 = entry.eval_count(prob["config"])
+    ev0 = entry.eval_count(prob)
     snap = None
     while True:
         chosen = pick.random() < 1.0 / (n_iter + 1)
         s = {} if chosen else None
-        e_before = entry.eval_count(prob["config"])
+        e_before = entry.eval_count(prob)
         failed += bool(entry.iteration(reg, spans, s))
         n_iter += 1
         ends.append(time.perf_counter() - t0)
         if s is not None:
             snap = s
         if tr is not None and tr.active:
-            tr.evals += entry.eval_count(prob["config"]) - e_before
+            tr.evals += entry.eval_count(prob) - e_before
             tr.iterations += 1
             if time.perf_counter() - tr.t0 >= min(TRACE_SECONDS, TRACE_SHARE * seconds):
                 tr.stop()
@@ -123,7 +123,7 @@ def window(entry, prob, reg, device, seconds: float, seed: int, trace: bool):
     if tr is not None and tr.active:
         tr.stop()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    record = {"iterations": n_iter, "failed": failed, "evals": entry.eval_count(prob["config"]) - ev0,
+    record = {"iterations": n_iter, "failed": failed, "evals": entry.eval_count(prob) - ev0,
               "spans": spans.records, "wall_s": wall, "iteration_ends": ends,
               "registrations": n_reg, "peak_bytes": peak,
               "shapes": shapes, "snapshot": snap, "trace": None}

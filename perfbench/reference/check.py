@@ -6,10 +6,11 @@ The reference follows the program step by step from the program's own state
 at the start of the sampled iteration (its GMM parameters, warped points and
 momenta there), since an L-BFGS in float64 would take other steps than the
 program's float32 one.  It checks by themselves the start that this skips:
-the support (the data, with dense support) and, in the first iteration of a
-registration, the GMM's start from the inputs.  Only dense support has a
-reference here: grid and decim support run a coverage pass (``kmin2``)
-whose distances nothing compares yet.
+the support (the data, with dense support; the grid, with grid support)
+and, in the first iteration of a registration, the GMM's start from the
+inputs.  Dense support shoots the data themselves (``lddmm.py``); grid
+support advects the data by the support's field and ends each registration
+with a coverage pass (``ext.py``).  Decim support has no reference yet.
 
 Numbers, each held to its limit (``perfbench/checks/<cell>.json``):
 
@@ -26,8 +27,8 @@ Numbers, each held to its limit (``perfbench/checks/<cell>.json``):
 - ``grad_err``: the registration's gradient at the momenta it returns
   against float64 autograd through the shoot, per frame, over the larger of
   its reference norm and the size of its terms, which cancel near a
-  minimum (the norm of lambda grad H = lambda v(q0) at the momenta); the
-  worst frame;
+  minimum (the norm of lambda grad H = lambda v(q0) at the momenta; with
+  grid support also that of the data loss's gradient); the worst frame;
 - ``reg_stall``: whether the registration moved: per frame 1 - P / D, P
   the drop of the reference's objective from the momenta before the
   iteration's Reg_opt calls to those after them, D the drop that one
@@ -37,7 +38,11 @@ Numbers, each held to its limit (``perfbench/checks/<cell>.json``):
   frame.  A registration that returns
   the momenta it was given reads 1; one that gets as far as one gradient
   step reads 0 or less;
-- ``q0_diff``: the support against the reference's, exactly.
+- ``q0_diff``: the support against the reference's, exactly;
+- ``cover_diff`` (grid support): the coverage pass's counts of uncovered
+  points, per frame and Euler state, at the momenta the registration
+  returns, against the float64 trajectory's: the points by which a count
+  lies outside the range that ``ext.cover_band`` allows, summed.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from perfbench.reference import ext as rext
 from perfbench.reference import gmm as rgmm
 from perfbench.reference import lddmm as rlddmm
 from perfbench.reference.precision import dtype
@@ -57,11 +63,14 @@ SD_ARMIJO = 1e-4
 
 def support(problem: dict, inputs: dict):
     """(q0, qmask) of the configuration, worked out from the registration's
-    inputs: with dense support the data themselves."""
+    inputs: with dense support the data themselves, with grid support the
+    grid over all frames' points."""
     scheme = problem["config"]["support"]["scheme"]
-    if scheme != "dense":
-        raise ValueError(f"no reference for support {scheme!r}")
-    return inputs["x0"], inputs["xmask"]
+    if scheme == "dense":
+        return inputs["x0"], inputs["xmask"]
+    if scheme == "grid":
+        return rext.support(problem["config"], inputs["x0"])
+    raise ValueError(f"no reference for support {scheme!r}")
 
 
 def start_state(problem: dict, inputs: dict, dev, dt) -> rgmm.State:
@@ -85,12 +94,14 @@ def outputs(problem: dict, snap: dict, prec: str, device) -> dict:
     q0_np, qmask_np = support(problem, snap["inputs"])
     q0, qm = t(q0_np), t(qmask_np)
     xm = t(snap["inputs"]["xmask"])
-    k, n, d = q0.shape
+    # the data: the support itself with dense support, else advected by it
+    x0 = q0 if cfg["support"]["scheme"] == "dense" else t(snap["inputs"]["x0"])
+    k, n, d = x0.shape
 
     # the EM stage, from the program's state at the iteration's start, or
     # from the inputs in the first iteration of a registration
     if snap["it"] == 0:
-        st0, x1_before = start_state(problem, snap["inputs"], device, dt), q0
+        st0, x1_before = start_state(problem, snap["inputs"], device, dt), x0
     else:
         g = snap["gmm_before"]
         st0 = rgmm.State(mu=t(g["mu"]), w=t(g["w"]), sigma=t(g["sigma"]))
@@ -104,22 +115,30 @@ def outputs(problem: dict, snap: dict, prec: str, device) -> dict:
         cands = [(0, st, tg)]
 
     return dict(q0=q0_np, em=cands,
-                **_registration(lcfg, q0, qm, xm, snap, cands, prec, t))
+                **_registration(lcfg, q0, qm, x0, xm, snap, cands, prec, t))
 
 
-def _registration(lcfg, q0, qm, xm, snap, cands, prec, t):
+def _registration(lcfg, q0, qm, x0, xm, snap, cands, prec, t):
     """Free energies, warped points and gradient at the program's momenta,
     with the targets of the EM candidate nearest the program's GMM; in
     float64 also each frame's objective before and after the Reg_opt calls
-    and the drop of one steepest-descent step."""
-    k, n, d = q0.shape
+    and the drop of one steepest-descent step.  With data apart from the
+    support (``x0`` is not ``q0``) also the coverage pass at the momenta
+    after: in float64 the range of sound counts, else the counts."""
+    k, n, d = x0.shape
     _, st, tg = min(cands, key=lambda c: _em_err(snap["gmm_after"], c[1], snap["extent"]))
     y = tg.y.reshape(k, n, d)
     wts = xm * tg.gamt.reshape(k, n)
     sig2 = st.sigma ** 2
+    ext = x0 is not q0
+
+    def loss(a, keep=False):
+        if ext:
+            return rext.loss(lcfg, q0, a, qm, x0, xm, y, wts, sig2, prec, keep)
+        return rlddmm.loss(lcfg, q0, a, qm, y, wts, sig2, prec) + (None,)
 
     def objective(a):
-        trajl, datal, _ = rlddmm.loss(lcfg, q0, a, qm, y, wts, sig2, prec)
+        trajl, datal, _, _ = loss(a)
         return trajl, datal
 
     out = {}
@@ -139,13 +158,36 @@ def _registration(lcfg, q0, qm, xm, snap, cands, prec, t):
     # taken against the size of its terms
     scale_mid = float(tg.cfe.abs() + trajl_b.abs().sum() + datal_b.sum())
     a0 = t(snap["a0_after"]).requires_grad_(True)
-    trajl, datal, pts = rlddmm.loss(lcfg, q0, a0, qm, y, wts, sig2, prec)
+    trajl, datal, pts, states = loss(a0, keep=ext)
+    if ext:
+        (gdata,) = torch.autograd.grad(datal.sum(), a0, retain_graph=True)
     (grad,) = torch.autograd.grad((trajl + datal).sum(), a0)
+    if ext:
+        with torch.no_grad():
+            d2 = rext.min_sqdist(states, qm)
+            del states
+            band = 0.0
+            if prec == "float64":
+                f32 = lambda a: a.detach().float()  # noqa: E731
+                *_, witness = rext.shoot(lcfg, f32(q0), f32(a0), f32(qm), f32(x0), f32(xm),
+                                         "float32", keep=True)
+                band = rext.cover_band(lcfg, d2, rext.min_sqdist(witness, f32(qm)))
+                del witness
+            sure, maybe = rext.cover_counts(lcfg, d2, xm, band)
+            del d2
+        if prec == "float64":
+            out.update(cover=(sure, maybe), cover_band=band)
+        else:
+            out["uncovered"] = sure
     # the size of the gradient's terms, which cancel near a minimum: that of
-    # lambda H, lambda v(q0) at the momenta
+    # lambda H, lambda v(q0) at the momenta; with data apart from the support
+    # also that of the data loss, which the divergence cost summed over the
+    # data, a term as large, balances
     with torch.no_grad():
         v0, _, _ = rlddmm.self_rhs(q0, a0.detach(), qm, float(lcfg["sigma"]), False, prec)
         gscale = float(lcfg["lambd"]) * v0.reshape(k, -1).norm(dim=1)
+        if ext:
+            gscale = torch.maximum(gscale, gdata.reshape(k, -1).norm(dim=1))
     fe = float(tg.cfe + trajl.detach().sum() + datal.detach().sum())
     scale = float(tg.cfe.abs() + trajl.detach().abs().sum() + datal.detach().sum())
     if prec == "float64":
@@ -198,8 +240,11 @@ def _em_err(prog_gmm: dict, st: rgmm.State, extent: float) -> float:
 def program_outputs(snap: dict) -> dict:
     """The program's outputs of the sampled iteration, in the reference's
     shape."""
-    return {"q0": snap["q0"], "gmm_after": snap["gmm_after"], "fe_mid": snap["fe_mid"],
-            "fe": snap["fe"], "x1": snap["x1_after"], "grad": snap["grad"]}
+    out = {"q0": snap["q0"], "gmm_after": snap["gmm_after"], "fe_mid": snap["fe_mid"],
+           "fe": snap["fe"], "x1": snap["x1_after"], "grad": snap["grad"]}
+    if "uncovered" in snap:
+        out["uncovered"] = snap["uncovered"]
+    return out
 
 
 def control_outputs(ctrl: dict) -> dict:
@@ -233,6 +278,17 @@ def frame_errors(got: dict, ref: dict, extent: float) -> dict:
             "grad": np.sqrt(((g_p - g_r).reshape(k, -1) ** 2).sum(1)) / np.maximum(den, 1e-300)}
 
 
+def cover_diff(got, ref: dict) -> float:
+    """The points by which the program's uncovered counts (frames, nt + 1)
+    lie outside the reference's sound range, summed (inf where the shapes
+    differ or no count was given)."""
+    sure, maybe = ref["cover"]
+    if got is None or np.shape(got) != np.shape(sure):
+        return float("inf")
+    c = np.asarray(got, np.int64)
+    return float((np.maximum(sure - c, 0) + np.maximum(c - maybe, 0)).sum())
+
+
 def numbers(got: dict, ref: dict, extent: float) -> dict:
     """Each compared number of ``got`` (the program's or the control's
     outputs) against the reference's."""
@@ -241,6 +297,9 @@ def numbers(got: dict, ref: dict, extent: float) -> dict:
     fr = frame_errors(got, ref, extent)
     q0 = float(np.abs(np.asarray(got["q0"], np.float64) - ref["q0"]).max()) \
         if np.shape(got["q0"]) == np.shape(ref["q0"]) else float("inf")
-    return {"em_err": em, "fe_err": fe, "x1_err": float(fr["x1"].max()),
-            "grad_err": float(fr["grad"].max()), "reg_stall": float(stall(ref).max()),
-            "q0_diff": q0}
+    out = {"em_err": em, "fe_err": fe, "x1_err": float(fr["x1"].max()),
+           "grad_err": float(fr["grad"].max()), "reg_stall": float(stall(ref).max()),
+           "q0_diff": q0}
+    if "cover" in ref:
+        out["cover_diff"] = cover_diff(got.get("uncovered"), ref)
+    return out

@@ -75,30 +75,26 @@ def em_optimization(state: State, x, mask, opt: dict, max_iterations: int, tol: 
                     prec: str):
     """EM to the free-energy tolerance: at least two steps, then stop once
     |fe - last_fe| < tol |last_fe|, at most ``max_iterations``.  Returns the
-    list of candidate (steps, state, Targets): the reference's own stop, and
-    the step counts a borderline decision could have given instead."""
+    list of candidate (steps, state, Targets): every step count at which the
+    stop test could end the EM in float32.  A decision within BORDERLINE of
+    the tolerance may go either way: where it may stop, its step count is a
+    candidate, and the EM is followed on past it, until a decision that
+    stops for certain or the step limit (which stops it too)."""
     steps = [(state, None)]
     fe, last_fe = math.inf, 0.0
-    decisions = []  # (i, relative change) at each stop test past two steps
+    cands = []
     i = 0
     while i < max_iterations:
         if i >= 2:
             rel = abs(fe - last_fe) / max(abs(last_fe), 1e-300)
-            decisions.append((i, rel))
-            if rel < tol:
-                break
+            if rel < tol * (1.0 + BORDERLINE):
+                cands.append(i)
+                if rel < tol * (1.0 - BORDERLINE):
+                    break
         state, tg = em_step(state, x, mask, opt, prec)
         steps.append((state, tg))
         last_fe, fe = fe, float(tg.fe)
         i += 1
-    n = i
-    cands = {n}
-    for j, rel in decisions:
-        if abs(rel - tol) <= BORDERLINE * tol:
-            cands.add(j)
-            if j == n and n < max_iterations:
-                cands.add(n + 1)
-    while max(cands) >= len(steps):
-        st, tg = em_step(steps[-1][0], x, mask, opt, prec)
-        steps.append((st, tg))
-    return [(c, steps[c][0], steps[c][1]) for c in sorted(cands)]
+    if i == max_iterations:
+        cands.append(i)
+    return [(c, steps[c][0], steps[c][1]) for c in sorted(set(cands))]

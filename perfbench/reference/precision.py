@@ -1,13 +1,15 @@
-"""Precisions the reference computes in: ``float64`` (the reference itself)
-and ``tf32`` (the control: float32 arithmetic whose matrix products take their
+"""Precisions the reference computes in: ``float64`` (the reference itself),
+``tf32`` (the control: float32 arithmetic whose matrix products take their
 operands rounded to TF32's 10-bit mantissa and accumulate in float32, as
-TF32 tensor cores do, emulated so that it reads the same on any device)."""
+TF32 tensor cores do, emulated so that it reads the same on any device) and
+``float32`` (a witness of float32 rounding: plain float32 products, with
+TF32 off as ``harness/window.check`` sets it)."""
 
 from __future__ import annotations
 
 import torch
 
-PRECISIONS = ("float64", "tf32")
+PRECISIONS = ("float64", "tf32", "float32")
 
 
 def dtype(prec: str) -> torch.dtype:

@@ -1,6 +1,7 @@
 """A run of each cell on the CPU at a small size with the timed path broken
 underneath (the harness's look for a card skipped): ``correct`` comes out
-false for each fault the cell can have.  A window of 0 s runs one whole
+false for each fault the cell can have, and where a fault names the number
+it breaks, that number is over its limit.  A window of 0 s runs one whole
 registration, and the check samples one of its outer iterations.  (The
 exchange between chips is not a fault of these one-chip cells.)"""
 
@@ -10,11 +11,13 @@ import time
 import pytest
 import torch
 
-from conftest import SEED, TINY
+from conftest import SEEDS, TINY
 from perfbench.harness import manifest as man
 
 sys.path.insert(0, str(man.BENCH))
 import run  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("pending_cells")
 
 
 def _state_unchanged_em(mp):
@@ -109,10 +112,49 @@ def _gradient_altered(mp):
     mp.setattr(lddmm, "optimize", altered)
 
 
+def _support_shifted(mp):
+    """Grid support one grid step off in x from the grid the data give."""
+    from difficp_torch.models import psr
+
+    orig = psr.grid_support
+
+    def shifted(points, rcover, **kw):
+        g = orig(points, rcover, **kw)
+        g[:, 0] += rcover
+        return g
+
+    mp.setattr(psr, "grid_support", shifted)
+
+
+# a grid of step 5 sigma_LDDMM leaves points farther than the coverage
+# radius, 2 sigma, from every support point (a grid over the data's bounding
+# box covers every frame wherever it lies, at a step under 2 sqrt(2) sigma)
+COARSE_GRID = {"support": {"scheme": "grid", "rho": 5.0}}
+
+
+def _coverage_zeros(mp):
+    """The coverage pass reports no uncovered point, on a grid that leaves
+    points uncovered."""
+    from difficp_torch.ops import backend
+
+    def none_uncovered(x, y, sigma, r_threshold, mask_x=None, mask_y=None):
+        return torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
+
+    mp.setattr(backend, "check_coverage", none_uncovered)
+    return COARSE_GRID
+
+
+# the number each fault has to fail where one is named
+TRIPS = {_support_shifted: "q0_diff", _coverage_zeros: "cover_diff",
+         _registration_unchanged: "reg_stall"}
 FAULTS = {
     "twoset_dense.n131k": [_state_unchanged_em, _state_unchanged_euler,
                            _registration_unchanged, _half_the_points_in_em,
                            _warped_points_altered, _gradient_altered],
+    "atlas_grid.k40": [_state_unchanged_em, _state_unchanged_euler,
+                       _registration_unchanged, _half_the_points_in_em,
+                       _warped_points_altered, _gradient_altered,
+                       _support_shifted, _coverage_zeros],
 }
 CASES = [(w, f) for w, fs in sorted(FAULTS.items()) for f in fs]
 
@@ -120,6 +162,33 @@ CASES = [(w, f) for w, fs in sorted(FAULTS.items()) for f in fs]
 @pytest.mark.parametrize("workload,fault", CASES,
                          ids=[f"{w}-{f.__name__.strip('_')}" for w, f in CASES])
 def test_a_broken_path_is_not_correct(monkeypatch, workload, fault):
-    fault(monkeypatch)
-    res = run.run(workload, SEED, 0.0, False, "cpu", time.perf_counter(), TINY[workload])
+    config = dict(TINY[workload].get("config", {}), **(fault(monkeypatch) or {}))
+    res = run.run(workload, SEEDS[workload], 0.0, False, "cpu", time.perf_counter(),
+                  dict(TINY[workload], config=config))
     assert res["correct"] is False, res["checks"]
+    if fault in TRIPS:
+        c = res["checks"][TRIPS[fault]]
+        assert not c["value"] <= c["limit"], res["checks"]
+
+
+def test_the_coarse_grid_leaves_points_uncovered(monkeypatch):
+    """The sound program on the coarse grid: points are uncovered, the counts
+    agree with the reference's and the run is correct, so that the fault
+    above is what fails."""
+    from difficp_torch.ops import backend
+
+    counts = []
+    orig = backend.check_coverage
+
+    def counted(*a, **kw):
+        out = orig(*a, **kw)
+        counts.append(int(out.sum()))
+        return out
+
+    monkeypatch.setattr(backend, "check_coverage", counted)
+    w = "atlas_grid.k40"
+    config = dict(TINY[w]["config"], **COARSE_GRID)
+    res = run.run(w, SEEDS[w], 0.0, False, "cpu", time.perf_counter(),
+                  dict(TINY[w], config=config))
+    assert res["correct"] is True, res["checks"]
+    assert res["checks"]["cover_diff"]["value"] == 0 and min(counts) > 0

@@ -90,7 +90,9 @@ def test_files_found_by_name(mf):
         limits = set(c["limits"]["limits"])
         assert {"em_err", "fe_err", "grad_err", "reg_stall", "q0_diff", "fe_rises"} <= limits
         assert limits <= {"em_err", "fe_err", "x1_err", "grad_err", "reg_stall", "q0_diff",
-                          "fe_rises"}
+                          "cover_diff", "fe_rises"}
+        if c["config"]["support"]["scheme"] != "dense":
+            assert {"x1_err", "cover_diff"} <= limits
         importlib.import_module(f"perfbench.entries.{c['config']['entry']}")
     files = [c["file"] for c in mf["configs"]]
     assert len(set(files)) == len(files)

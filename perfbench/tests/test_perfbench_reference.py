@@ -5,16 +5,16 @@ reference in TF32 in the program's place) fails at least one."""
 import numpy as np
 import pytest
 
-from conftest import SEED, TINY
+from conftest import SEEDS, TINY
 from perfbench.harness import window as win
 from perfbench.reference import check as rc
 
 
 @pytest.fixture(scope="module", params=sorted(TINY))
-def sampled(request):
+def sampled(request, pending_cells):
     w = request.param
-    c, entry, prob, reg = win.setup(w, SEED, "cpu", TINY[w])
-    rec = win.window(entry, prob, reg, "cpu", 0.0, SEED, False)
+    c, entry, prob, reg = win.setup(w, SEEDS[w], "cpu", TINY[w])
+    rec = win.window(entry, prob, reg, "cpu", 0.0, SEEDS[w], False)
     snap = dict(rec["snapshot"], extent=prob["extent"])
     ref = rc.outputs(prob, snap, "float64", "cpu")
     return c["limits"]["limits"], prob, snap, ref

@@ -15,6 +15,8 @@ from perfbench.harness import manifest as man
 sys.path.insert(0, str(man.BENCH))
 import run  # noqa: E402
 
+pytestmark = pytest.mark.usefixtures("pending_cells")
+
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 

@@ -20,6 +20,8 @@ from perfbench.metrics import (em_idle_pct, em_step_ms, em_steps_per_call,
 sys.path.insert(0, str(man.BENCH))
 import run  # noqa: E402
 
+pytestmark = pytest.mark.usefixtures("pending_cells")
+
 MS = 1_000_000
 US = 1_000
 READERS = {"em_steps_per_call": em_steps_per_call, "em_step_ms": em_step_ms,
@@ -132,26 +134,29 @@ class CPUTrace(trace_mod.DeviceTrace):
 
 @pytest.mark.parametrize("workload", sorted(TINY))
 def test_traced_rehearsal_reports_the_span_metrics(monkeypatch, workload):
-    """``--trace 1`` on the CPU at a small size, the kernel wrappers' route
-    forced (their plain versions), the device trace CPU operators: the
-    result reports the six span metrics; the EM steps a call lie in
-    [2, 10]."""
+    """``--trace 1`` on the CPU at a small size, the device trace CPU
+    operators, the kernel wrappers' route forced (their plain versions)
+    where the cell reads their spans: the result reports the span metrics
+    the cell lists; the EM steps a call lie in [2, the EM's limit]."""
     from difficp_torch.ops import backend
 
+    listed = {m["name"] for m in man.metrics_for(man.load(), workload, True)}
+    readers = set(READERS) & listed
     monkeypatch.setattr(trace_mod, "DeviceTrace", CPUTrace)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    backend.set_backend("kernel")
+    backend.set_backend("kernel" if "wrapper_host_us" in listed else None)
     try:
         res = run.run(workload, SEED, 2.0, True, "cpu", time.perf_counter(), TINY[workload])
     finally:
         backend.set_backend(None)
     assert res["correct"] is True and res["failed"] == 0, res["checks"]
-    listed = {m["name"] for m in man.metrics_for(man.load(), workload, True)}
-    assert set(READERS) <= listed and set(READERS) <= set(res["metrics"])
-    for name in READERS:
+    assert {"trials_per_linesearch", "lbfgs_idle_ms_per_eval"} <= readers <= set(res["metrics"])
+    for name in readers:
         assert res["metrics"][name]["value"] >= 0, name
-    assert 2 <= res["metrics"]["em_steps_per_call"]["value"] <= 10
-    assert 0 <= res["metrics"]["em_idle_pct"]["value"] <= 100
     spans = profiling.spans()
-    assert sum(s.name == "psr.GMM_opt" for s in spans) >= 1
+    if "em_steps_per_call" in readers:
+        em_limit = man.cell(man.load(), workload)["config"]["loop"]["em"]["max_iterations"]
+        assert 2 <= res["metrics"]["em_steps_per_call"]["value"] <= em_limit
+        assert 0 <= res["metrics"]["em_idle_pct"]["value"] <= 100
+        assert sum(s.name == "psr.GMM_opt" for s in spans) >= 1
     assert sum(s.name in ("lbfgs.entry", "lbfgs.eval") for s in spans) >= 3

@@ -22,6 +22,36 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 
+def em_path(prob, snap, device):
+    """The sampled iteration's EM in float64 step by step to its step limit:
+    per step the relative free-energy change over the tolerance (the stop
+    test's) and the program's GMM's distance from that step's (``em_err``)."""
+    import numpy as np
+    import torch
+
+    from perfbench.reference import check as rc
+    from perfbench.reference import gmm as rgmm
+
+    cfg = prob["config"]
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device, dtype=torch.float64)  # noqa: E731
+    x = t(snap["x1_before"])
+    k, n, d = x.shape
+    xf, mf = x.reshape(k * n, d), t(snap["inputs"]["xmask"]).reshape(k * n)
+    if snap["it"] == 0:
+        st = rc.start_state(prob, snap["inputs"], device, torch.float64)
+    else:
+        g = snap["gmm_before"]
+        st = rgmm.State(mu=t(g["mu"]), w=t(g["w"]), sigma=t(g["sigma"]))
+    out, last = [], None
+    for i in range(cfg["loop"]["em"]["max_iterations"]):
+        st, tg = rgmm.em_step(st, xf, mf, cfg["gmm"], "float64")
+        fe = float(tg.fe)
+        rel = abs(fe - last) / abs(last) / cfg["loop"]["em"]["tol"] if last else None
+        out.append([i + 1, rel, rc._em_err(snap["gmm_after"], st, prob["extent"])])
+        last = fe
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -29,6 +59,8 @@ def main() -> int:
     ap.add_argument("--control-seeds", default="")
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--em-path", action="store_true",
+                    help="also record the float64 EM step by step (``em_path``)")
     args = ap.parse_args()
 
     import torch
@@ -67,6 +99,12 @@ def main() -> int:
                "sd_drop": ref["sd_drop"].tolist(),
                "reference_s": t2 - t1, "run_s": t1 - t0,
                "program": rc.numbers(rc.program_outputs(snap), ref, prob["extent"])}
+        if snap["em"] and args.em_path:
+            row["em_path"] = em_path(prob, snap, "cuda")
+        if "cover" in ref:
+            row.update(cover_band=ref["cover_band"], uncovered=int(snap["uncovered"].sum()),
+                       uncovered_sure=int(ref["cover"][0].sum()),
+                       uncovered_maybe=int(ref["cover"][1].sum()))
         if seed in controls:
             t3 = time.perf_counter()
             ctl = rc.outputs(prob, snap, "tf32", "cuda")
