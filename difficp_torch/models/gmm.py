@@ -266,7 +266,7 @@ def em_step(state: GMMState, x, mask: Optional[torch.Tensor], cfg: GMMConfig,
         mask = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
     if tile is not None:
         return _em_step_tiled(state, x, mask, cfg, skip_m, tile, group)
-    if _backend._use_dense(x.shape[0], state.mu.shape[0]):
+    if _backend._route("em_step", x.shape[0], state.mu.shape[0]) == "dense":
         return _em_step_dense(state, x, mask, cfg, skip_m, group)
     return _em_step_tiled(state, x, mask, cfg, skip_m, EM_TILE, group)
 

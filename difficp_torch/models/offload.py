@@ -45,7 +45,7 @@ def _point_tiles(n, c):
     """The point ranges of one chunk's E steps: all at once at or under the
     dense pair limit (n c pairs), else tiles of ``gmm.EM_TILE`` points, as
     ``gmm.em_step`` streams them."""
-    if backend._use_dense(n, c):
+    if backend._route("em_step", n, c) == "dense":
         return [(0, n)]
     tile = gmm_mod.EM_TILE
     return [(lo, min(lo + tile, n)) for lo in range(0, n, tile)]

@@ -116,7 +116,12 @@ def _reg_opt_lddmm(lcfg, q0, a0, x0, y, sig2, qmask, xmask, ptw, nmax, tol,
         inner=inner, max_linesearch_steps=ls_steps, alpha0=alpha0,
         alpha_qn0=alpha_qn0, memory0=mem0, warm_vg=vg0, stall0=stall0)
     if use_ext and coverage_check:
-        with torch.no_grad():
+        # the span carries the shape of the coverage pass's one min reduction:
+        # every saved state of every frame, (nt + 1) x K sets of points
+        # against the support
+        with torch.no_grad(), profiling.span(
+                "psr.coverage", frames=(lcfg.nt + 1) * math.prod(x0.shape[:-2]),
+                points=x0.shape[-2], support=q0.shape[-2], d=x0.shape[-1]):
             final, traj = lddmm_mod.shoot(lcfg, q0, res.p0, x0, qmask, xmask,
                                           save_traj=True)
             uncov = red.check_coverage(traj.x, traj.q, lcfg.sigma, r_cover_warn,

@@ -585,6 +585,60 @@ def test_ext_shoot_kernel_route_matches_dense_on_card(cuda, scheme):
         _close(got.detach(), ref.detach(), TOL_BWD)
 
 
+def test_grid_atlas_routes_on_its_frames_together_on_card(cuda):
+    """8 spiral frames of 65,536 points on the sigma = 0.2 grid (36 support
+    points): 2.36M RHS pairs a frame, under DENSE_PAIR_LIMIT, and 18.9M for
+    the call, over it, so the auto route is the kernel route.  Its loss+grad
+    (hybrid, nt = 10 Euler) and coverage pass against the dense route in
+    float32 and in float64: the loss and gradient within TOL_BWD of the
+    float64 ones' largest entry, the uncovered points at two thresholds the
+    float64 trajectory's, except within 1e-4 (relative) of the threshold."""
+    x, mx, q, p0, mq, *_ = _ext_spiral_inputs(8, 65536, 2, "grid", seed=20, device=cuda,
+                                              sigma=0.2)
+    assert q.shape[1] == 36 and q.shape[1] * (q.shape[1] + x.shape[1]) <= \
+        backend.DENSE_PAIR_LIMIT < 8 * q.shape[1] * (q.shape[1] + x.shape[1])
+    cfg = lddmm.make_config(sigma=0.2, lambd=500.0, version="hybrid", nt=10, scheme="Euler")
+    y = x + 0.01 * torch.randn(x.shape, generator=torch.Generator(cuda).manual_seed(3),
+                               device=cuda)
+
+    def run(mode, dtype):
+        backend.set_backend(mode)
+        x_, mx_, q_, p_, mq_, y_ = (t.to(dtype) for t in (x, mx, q, p0, mq, y))
+        backend.routes.clear()
+        p = p_.clone().requires_grad_(True)
+        final, _ = lddmm.shoot(cfg, q_, p, x_, mq_, mx_)
+        loss = (lddmm.trajloss(cfg, q_, p, final.cost, mq_)
+                + (mx_[..., None] * (final.x - y_) ** 2).sum((1, 2)) / 0.02)
+        (g,) = torch.autograd.grad(loss.sum(), p)
+        with torch.no_grad():
+            _, traj = lddmm.shoot(cfg, q_, p.detach(), x_, mq_, mx_, save_traj=True)
+            d2 = backend.min_sqdist(traj.x, traj.q, mq_)
+        torch.cuda.synchronize()
+        return loss.detach().double(), g.double(), d2.double(), dict(backend.routes)
+
+    try:
+        kern = run(None, torch.float32)
+        dense = run("dense", torch.float32)
+        f64 = run("dense", torch.float64)
+    finally:
+        backend.set_backend(None)
+    for fn in ("lddmm_rhs_ext", "row_order", "data_order", "min_sqdist"):
+        assert kern[3].get((fn, "kernel"), 0) > 0 and (fn, "dense") not in kern[3], fn
+    for got in (kern, dense):
+        _close(got[0], f64[0], TOL_BWD)
+        _close(got[1], f64[1], TOL_BWD)
+    sig = 0.2
+    for r in (0.5, 2.0):
+        thr = (r * sig) ** 2
+        sure = (f64[2] - thr).abs() > 1e-4 * thr
+        want = (f64[2] > thr) & (mx > 0)
+        for got in (kern, dense):
+            unc = (got[2] > thr) & (mx > 0)
+            assert torch.equal(unc[sure], want[sure]), r
+        if r == 0.5:
+            assert int(want.sum()) > 0
+
+
 # ---------------------------------------------------------------------------
 # the gradcomponent (eta != 0) slice: the generic kernel-sum and the ETA
 # instances of the forward kernels

@@ -25,8 +25,15 @@ runs.  For the first ``on`` window it prints, and writes to
   ``GMM_opt`` and ``Reg_opt`` spans, the share inside a child span of
   ``psr.GMM_opt`` / ``psr.Reg_opt`` (not their self time);
 - ``iterations``: each outer iteration of each registration, its wall time
-  and its EM steps, entry evaluations, line-search trials and row orders
-  (count and ms);
+  and its EM steps, entry evaluations, line-search trials, row orders and
+  coverage passes (count and ms);
+- ``coverage``: each coverage pass (``psr.coverage``), its ms and the shape
+  of its min reduction;
+- ``routes``: the window's route decisions by function and route
+  (``ops.backend.routes``);
+- ``ops_by_harness_span``: the traced device operations that start inside
+  each kind of harness span (``GMM_opt``, ``Reg_opt``, ``restart``), and
+  those of ``Reg_opt`` per traced loss+grad;
 - ``table``: count, total and self seconds per span name;
 - ``metrics``: the six span readers of ``perfbench/metrics`` on the window.
 """
@@ -38,6 +45,7 @@ import json
 import statistics
 import sys
 import time
+from bisect import bisect_left
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -125,6 +133,15 @@ def idle_table(spans, events, hspans, lo, hi):
     return by, work, child
 
 
+def ops_by(hspans, events):
+    """The device operations that start inside each kind of harness span."""
+    starts = sorted(e[1] for e in events)
+    out = {}
+    for name, a, b in hspans:
+        out[name] = out.get(name, 0) + bisect_left(starts, b) - bisect_left(starts, a)
+    return out
+
+
 def iterations(spans):
     """Each registration's outer iterations (a psr.GMM_opt and the psr.Reg_opt
     calls after it), with their wall ms and what they hold."""
@@ -144,7 +161,8 @@ def iterations(spans):
         row = {"psr": g[0].psr, "wall_ms": (b - a) / 1e6, "calls": [s.name for s in g]}
         for key, name in (("em_steps", "gmm.em_step"), ("entries", "lbfgs.entry"),
                           ("trials", "lbfgs.eval"), ("searches", "lbfgs.linesearch"),
-                          ("row_orders", "lddmm.row_order"), ("fe_syncs", "psr.fe_sync")):
+                          ("row_orders", "lddmm.row_order"), ("fe_syncs", "psr.fe_sync"),
+                          ("coverage", "psr.coverage")):
             ss = named(inside, name)
             row[key] = [len(ss), sum(s.end_ns - s.start_ns for s in ss) / 1e6]
         out.append(row)
@@ -154,6 +172,7 @@ def iterations(spans):
 def one_window(win, entry, prob, device, seconds, seed, on):
     """A window of the cell from its first registration, with the recorder
     as it is (``on``) or stubbed; its record and spans."""
+    from difficp_torch.ops import backend
     from difficp_torch.utils import profiling
 
     span = profiling.span
@@ -161,11 +180,12 @@ def one_window(win, entry, prob, device, seconds, seed, on):
         profiling.span = lambda *a, **k: profiling.OFF
     try:
         reg = entry.Registration(prob, device, 0)
+        backend.routes.clear()
         rec = win.window(entry, prob, reg, device, seconds, seed, True)
         win.free(reg)
     finally:
         profiling.span = span
-    return rec, profiling.spans()
+    return rec, profiling.spans(), dict(backend.routes)
 
 
 def main(argv=None) -> int:
@@ -192,8 +212,8 @@ def main(argv=None) -> int:
     result = {"workload": args.workload, "seed": args.seed, "seconds": args.seconds,
               "card": torch.cuda.get_device_name(), "windows": []}
     for kind in args.windows.split(","):
-        rec, spans = one_window(win, entry, prob, "cuda", args.seconds, args.seed,
-                                kind == "on")
+        rec, spans, routes = one_window(win, entry, prob, "cuda", args.seconds, args.seed,
+                                        kind == "on")
         tr = rec["trace"]
         w = {"recorder": kind, "traced_iterations": tr["iterations"],
              "traced_window_s": tr["window_s"],
@@ -212,6 +232,12 @@ def main(argv=None) -> int:
             result["idle_in_harness_spans"] = {"idle_s": work / 1e9, "in_child_s": child / 1e9,
                                                "share": child / work if work else None}
             result["iterations"] = iterations(spans)
+            result["coverage"] = [dict(s.attrs, ms=(s.end_ns - s.start_ns) / 1e6)
+                                  for s in spans if s.name == "psr.coverage"]
+            ops = ops_by(hspans, tr["events"])
+            result["ops_by_harness_span"] = dict(
+                ops, reg_opt_per_eval=ops.get("Reg_opt", 0) / tr["evals"] if tr["evals"] else None)
+            result["routes"] = {f"{fn} {route}": n for (fn, route), n in sorted(routes.items())}
             from difficp_torch.utils import profiling
 
             result["table"] = profiling.span_table(spans)
